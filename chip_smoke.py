@@ -3,23 +3,44 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit) and builds the
-   kernels K1 (csrc/myers.cu), K2 (csrc/gotoh.cu) and K2-tb
-   (csrc/gotoh_tb.cu) with nvcc for sm_90a, one process per source,
-   printing the build seconds and the -Xptxas -v register/spill lines.
+   kernels K1 (csrc/myers.cu), K2 (csrc/gotoh.cu), K2-tb
+   (csrc/gotoh_tb.cu), K3 (csrc/gotoh_banded.cu) and K3-tb
+   (csrc/gotoh_banded_tb.cu) with nvcc for sm_90a, one process per
+   source, all started together, printing the build seconds and the
+   -Xptxas -v register/spill lines. Counts the instructions of K3's row
+   loop in each of its instantiations (cuobjdump -sass of the built
+   library), beside the operations per cell its bound counts.
 2. Holds each kernel against its plain PyTorch version on the same
    inputs, made from numpy.random.default_rng(seed), at the shapes of
-   the sr main path and beyond. Tolerance: exact equality (integer and
-   byte outputs). Times kernel and plain version with CUDA events.
-3. Generates the svmix and deepgeno datasets with the port's copy of the
-   generators and runs `sr` on each, and `sr -v` on deepgeno, through
-   the CLI entry point on the card, with the launch counters set to 0
-   just before each run and read just after. Checks svmix against its
-   truth (36/36 recall, precision 1.0), every kernel's launches, no host
-   routes, and that the same three commands with
-   DELLY_TPU_TORCH_DEVICE=cpu (run one after the other, with their stage
-   profiles) write the same VCFs apart from ##fileDate.
+   the sr main path and beyond: K3/K3-tb in all four end-gap configs at
+   every band (512...4096) with M = 256, at every band with M = 16,384
+   (n = 1 included), m = 32,768 at band 4,096, and swapped and n = 1
+   jobs through gotoh_banded_batch against the host corridor.
+   Tolerance: exact equality (integer and byte outputs). Times kernel
+   and plain version with CUDA events.
+3. Generates the svmix, deepgeno and long-split datasets with the port's
+   copy of the generators and runs `sr` on each, and `sr -v` on
+   deepgeno, through the CLI entry point on the card, with the launch
+   counters set to 0 just before each run and read just after. Checks
+   svmix against its truth (36/36 recall, precision 1.0), long-split
+   against its truth (24/24 DELs, precision 1.0, every merge on K3/K3-tb),
+   every kernel's launches, no host routes, and that the same four
+   commands with DELLY_TPU_TORCH_DEVICE=cpu (run one after the other,
+   with their stage profiles) write the same VCFs apart from ##fileDate.
+   Then runs `sr` on the card on long split reads with 4 reads per DEL
+   (2 DELs), where the profile merges wider than 4,096 columns take the
+   host full DP, and prints the share of split-read assembly spent there.
+   Then holds the long-split run's own K3/K3-tb launches against the
+   plain versions and times them: the kernels line's K3 numbers.
 4. Prints the kernels line, then as the last line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}:
+   the run uses one card, cuda:0.
+
+Operations bounds use the card's 32-bit integer rate: 64 INT32 lanes per
+SM x the SM count x the SM clock (nvidia-smi clocks.max.sm); every
+kernel here does 32-bit integer work. They count the operations of the
+recurrence each kernel computes, not the instructions the kernel spends
+on it.
 
 Any failed phase exits non-zero before the result lines. Without a GPU,
 or without the rest of the repository beside it, the script fails.
@@ -32,6 +53,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -43,10 +65,22 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-INT_OPS_PER_S = 67e12          # float32 outside the tensor cores (the
-#                                measurement table has no int32 row)
+INT32_LANES_PER_SM = 64        # Hopper: half the SM's 128 FP32 lanes
+INT32_OPS_PER_S = None         # set by main(): lanes x SMs x SM clock
 MYERS_OPS_PER_WORD = 17        # integer ops of one Myers word update
 GOTOH_OPS_PER_CELL = 40        # integer ops of one K2 cell
+# Integer operations of one K3 (row, slot) cell, counted in the recurrence
+# of gotoh_banded_host (delly_tpu/ops/gotoh_banded.py:80-128) with the
+# row's constants hoisted: column 1, in-band test 1, vertical end-gap
+# choice 3, V 3, score (clip 3, compare, select) 5, diagonal 2, column-0
+# seed 2, scan input 2, prefix max 1, H 3, H clamp 1, S 1, H_prev + E 1,
+# direction bits (4 compares, 3 shifts, 3 ors) 10, column-0 and
+# out-of-band selects 3. phase_build counts what the kernel executes.
+BANDED_OPS_PER_CELL = 39
+BANDED_TB_OPS_PER_STEP = 16    # K3-tb step: offset, byte load, branch
+LONG_SPLIT = dict(n_contigs=4, contig_len=1_000_000, dels_per_contig=6,
+                  reads_per_del=2, read_len=12_000, jitter=200,
+                  pairs_per_contig=20_000)
 
 
 def fail(msg: str) -> None:
@@ -74,9 +108,22 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed(fn):
+    """One call of fn, timed with CUDA events: (result, ms)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def bound(nbytes: float, ops: float) -> dict:
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / INT_OPS_PER_S * 1e3
+    o_ms = ops / INT32_OPS_PER_S * 1e3
     return {"bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "bytes": int(nbytes), "bytes_ms": b_ms, "ops": int(ops),
@@ -113,6 +160,69 @@ def phase_build(details: dict) -> None:
                                      "Function properties")):
                 print(f"  ptxas[{name}]: {ln.strip()}")
     details["build_s"] = {"wall": wall, "host_library": host["s"], **secs}
+
+
+# SASS opcodes that are no integer work: memory, shuffles, barriers,
+# control flow, special registers, conversions; uniform-datapath (U*)
+# opcodes run once per warp and are left out too
+NON_ALU = ("LD", "ST", "ATOM", "RED", "SHFL", "BAR", "BRA", "BSSY", "BSYNC",
+           "BREAK", "WARPSYNC", "NOP", "EXIT", "S2", "CS2R", "MEMBAR",
+           "DEPBAR", "I2F", "F2I", "MUFU", "U")
+SASS_INS = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);")
+
+
+def k3_row_loops(sass: str) -> dict:
+    """{(CPT, T): (instructions, integer instructions)} of the row loop of
+    each banded_kernel<CPT, T> in `cuobjdump -sass` text: the largest
+    loop (a backward branch and its target) that holds a block barrier.
+    A static count: the unrolled loop over the scan's warp totals counts
+    once, whatever the thread's warp index."""
+    loops = {}
+    for fn in sass.split("Function : ")[1:]:
+        cpt, t = map(int, re.search(r"banded_kernelILi(\d+)ELi(\d+)E",
+                                    fn).groups())
+        ins = [(int(a, 16), op.split(".")[0], rest)
+               for a, op, rest in SASS_INS.findall(fn)]
+        at = {a: i for i, (a, _op, _rest) in enumerate(ins)}
+        body = []
+        for i, (a, op, rest) in enumerate(ins):
+            tgt = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            if tgt and int(tgt.group(1), 16) < a:
+                seg = ins[at[int(tgt.group(1), 16)]:i + 1]
+                if len(seg) > len(body) and any(o == "BAR" for _a, o, _r in seg):
+                    body = seg
+        need(body, f"K3 SASS: no row loop in banded_kernel<{cpt}, {t}>")
+        loops[(cpt, t)] = (len(body), sum(not o.startswith(NON_ALU)
+                                          for _a, o, _rest in body))
+    return loops
+
+
+def k3_sass(details) -> dict:
+    """Prints what K3 executes per DP row and thread, from `cuobjdump
+    -sass` of the library just built, beside the operations per cell
+    that its bound counts (BANDED_OPS_PER_CELL). Returns the row loops
+    by band: {B: (instructions, integer instructions, threads)}."""
+    from delly_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", _build._lib_path("gotoh_banded")],
+                          capture_output=True, text=True, check=True).stdout
+    loops = k3_row_loops(sass)
+    need((2, 512) in loops and (4, 512) in loops, "K3 SASS: instantiations")
+    # integer instructions one more slot per thread adds to the row loop
+    per_slot = (loops[(4, 512)][1] - loops[(2, 512)][1]) / 2
+    print("K3 SASS row loop per thread (cuobjdump): " + ", ".join(
+        f"B={c * t} ({c} slots x {t}) {n} instructions, {a} integer"
+        for (c, t), (n, a) in sorted(loops.items())) +
+        f"; one more slot adds {per_slot:g} integer instructions; the bound"
+        f" counts {BANDED_OPS_PER_CELL} operations per cell")
+    details["k3_sass"] = {
+        "row_loop": {f"{c}x{t}": {"instructions": n, "integer": a}
+                     for (c, t), (n, a) in loops.items()},
+        "integer_per_slot": per_slot,
+        "ops_per_cell_counted": BANDED_OPS_PER_CELL}
+    return {c * t: (n, a, t) for (c, t), (n, a) in loops.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -174,32 +284,34 @@ def check_myers(dev, rng, details) -> dict:
     return out
 
 
+def _seq(prng, k):
+    return "".join(prng.choice("ACGT") for _ in range(k))
+
+
+def _mutate(prng, s):
+    """4% deletions, 4% substitutions, 2% insertions."""
+    out = []
+    for ch in s:
+        r = prng.random()
+        if r < 0.04:
+            continue
+        out.append(prng.choice("ACGT") if r < 0.08 else ch)
+        if prng.random() < 0.02:
+            out.append(prng.choice("ACGT"))
+    return "".join(out)
+
+
 def _gotoh_jobs(rng, n_jobs, lo, hi, multi_frac):
     from delly_tpu_torch.ops.gotoh import gotoh, to_align
 
     prng = random.Random(int(rng.integers(0, 2 ** 31)))
-
-    def seq(k):
-        return "".join(prng.choice("ACGT") for _ in range(k))
-
-    def mutate(s):
-        out = []
-        for ch in s:
-            r = prng.random()
-            if r < 0.04:
-                continue
-            out.append(prng.choice("ACGT") if r < 0.08 else ch)
-            if prng.random() < 0.02:
-                out.append(prng.choice("ACGT"))
-        return "".join(out)
-
     jobs = []
     for _ in range(n_jobs):
-        base = seq(prng.randint(lo, hi))
-        a1 = to_align(mutate(base))
+        base = _seq(prng, prng.randint(lo, hi))
+        a1 = to_align(_mutate(prng, base))
         if prng.random() < multi_frac:
-            a1 = gotoh(a1, mutate(base), ac=(True, True))[1]
-        jobs.append((a1, to_align(mutate(base))))
+            a1 = gotoh(a1, _mutate(prng, base), ac=(True, True))[1]
+        jobs.append((a1, to_align(_mutate(prng, base))))
     return jobs
 
 
@@ -271,15 +383,230 @@ def check_gotoh(dev, rng, details):
     return k2, tb
 
 
+def banded_vs_plain(dev, fargs, label) -> dict:
+    """K3 and K3-tb against their plain versions on one launch's inputs
+    fargs = (s1, s2, mlen, nlen, B, hfree, vfree, match, mismatch, go,
+    ge), all on the card: exact equality of best, the bits of rows
+    1..m, lens and the codes. Returns the plain versions' times, the
+    work counts of the bounds and the largest differences (0)."""
+    import torch
+
+    from delly_tpu_torch.ops.gotoh_banded_cuda import (
+        banded_forward, banded_forward_plain, banded_traceback,
+        banded_traceback_plain,
+    )
+
+    s1, _s2, ml, nl, B = fargs[:5]
+    best, bits = banded_forward(*fargs)
+    codes, lens = banded_traceback(bits, ml, nl)
+    (pbest, pbits), p_ms = timed(lambda: banded_forward_plain(*fargs))
+    (pcodes, plens), ptb_ms = timed(
+        lambda: banded_traceback_plain(pbits, ml, nl))
+    e_best = int((best.long() - pbest.long()).abs().max())
+    e_bits = e_tb = 0
+    for g, (m, k) in enumerate(zip(ml.tolist(), lens.tolist())):
+        e_bits = max(e_bits, int((bits[g, :m].int() - pbits[g, :m].int())
+                                 .abs().max()))
+        e_tb = max(e_tb, int((codes[g, :k].int() - pcodes[g, :k].int())
+                             .abs().max()) if k else 0)
+    need(e_best == 0 and e_bits == 0,
+         f"K3 != plain on {label} (best {e_best}, bits {e_bits})")
+    need(torch.equal(lens, plens) and e_tb == 0, f"K3-tb != plain on {label}")
+    rows = int(ml.long().sum())
+    return {"plain_ms": p_ms, "tb_plain_ms": ptb_ms, "err": e_best,
+            "tb_err": e_tb, "rows": rows, "cells": rows * B,
+            "in_bytes": rows + int(nl.long().sum()) + 8 * len(ml),
+            "steps": int(lens.long().sum()), "jobs": len(ml),
+            "M": s1.shape[1], "B": B}
+
+
+def _banded_jobs(prng, n_jobs, lo, hi, n_one):
+    """Single-row pairs of a random sequence and a mutated copy, the
+    longer first (the kernels take n <= m); with n_one, one more job
+    whose second sequence is one base."""
+    from delly_tpu_torch.ops.gotoh import to_align
+
+    jobs = []
+    for _ in range(n_jobs):
+        base = _seq(prng, prng.randint(lo, hi))
+        a, b = to_align(base), to_align(_mutate(prng, base))
+        jobs.append((a, b) if a.shape[1] >= b.shape[1] else (b, a))
+    if n_one:
+        jobs.append((jobs[0][0], jobs[0][0][:, 5:6].copy()))
+    return jobs
+
+
+def check_banded(dev, rng, details) -> int:
+    """K3/K3-tb against the plain versions at every band in all four
+    end-gap configs (M = 256), at every band with M = 16,384, and at
+    m = 32,768; swapped and n = 1 jobs through gotoh_banded_batch
+    against the host corridor. Returns the largest difference (0)."""
+    import torch
+
+    from delly_tpu_torch.ops.gotoh import DnaScore, to_align
+    from delly_tpu_torch.ops.gotoh_banded import gotoh_banded_host
+    from delly_tpu_torch.ops.gotoh_banded_cuda import (
+        BANDS, _bucket_m, gotoh_banded_batch, pack_jobs,
+    )
+
+    prng = random.Random(int(rng.integers(0, 2 ** 31)))
+    sc = DnaScore()
+    acs = [(True, True), (False, False), (True, False), (False, True)]
+    cases = [(f"M=256 B={B} ac={ac}", 8, 150, 256, B, ac)
+             for B in BANDS for ac in acs]
+    cases += [(f"M=16384 B={B} ac={acs[i]}", 3, 8300, 9500, B, acs[i])
+              for i, B in enumerate(BANDS)]
+    err = 0
+    t0 = time.time()
+    for label, n_jobs, lo, hi, B, ac in cases:
+        jobs = _banded_jobs(prng, n_jobs, lo, hi, n_one=True)
+        M = _bucket_m(max(a.shape[1] for a, _ in jobs))
+        packed = [torch.from_numpy(x).to(dev) for x in pack_jobs(jobs, M)]
+        r = banded_vs_plain(dev, (*packed, B, ac[0], ac[1], sc.match,
+                                  sc.mismatch, sc.go, sc.ge), label)
+        err = max(err, r["err"], r["tb_err"])
+        print(f"K3/K3-tb {label}: {len(jobs)} jobs (n=1 included): equal")
+    base = _seq(prng, 32768)
+    jobs = [(to_align(base), to_align(_mutate(prng, base)[:32768]))]
+    packed = [torch.from_numpy(x).to(dev) for x in pack_jobs(jobs, 32768)]
+    r = banded_vs_plain(dev, (*packed, 4096, True, True, sc.match,
+                              sc.mismatch, sc.go, sc.ge), "m=32768")
+    print(f"K3/K3-tb m=32768 B=4096: equal (plain {r['plain_ms']:.0f} ms, "
+          f"walk {r['tb_plain_ms']:.0f} ms)")
+    # the batch entry point on the card: transposed jobs and n = 1
+    base = _seq(prng, 3000)
+    other = _mutate(prng, base)
+    pairs = [(base, other), (other, base), (base, "A"), ("C", base)]
+    got = gotoh_banded_batch(pairs, ac=(True, False), sc=sc, band=1024)
+    for (x, y), (score, merged) in zip(pairs, got):
+        a1, a2 = to_align(x), to_align(y)
+        if a2.shape[1] > a1.shape[1]:
+            ws, wm = gotoh_banded_host(a2, a1, ac=(False, True), sc=sc,
+                                       band=1024)
+            wm = np.concatenate([wm[1:], wm[:1]], axis=0)
+        else:
+            ws, wm = gotoh_banded_host(a1, a2, ac=(True, False), sc=sc,
+                                       band=1024)
+        need(score == ws and np.array_equal(merged, wm),
+             "gotoh_banded_batch on the card != host corridor")
+    print("K3/K3-tb gotoh_banded_batch, swapped and n=1 jobs: equal to the "
+          "host corridor")
+    details["k3_cases"] = [c[0] for c in cases] + [
+        "m=32768 B=4096", "batch: swapped, n=1"]
+    details["k3_check_s"] = time.time() - t0
+    return err
+
+
+def measure_banded(dev, launches, err, sass_loops) -> tuple:
+    """The main path's K3/K3-tb numbers from the long-split run's own
+    launches (their inputs, recorded during the run): each held against
+    the plain versions, then timed; times, bounds and plain times are
+    sums over the launches. Beside the bound, the time the integer
+    instructions of K3's row loops (`sass_loops`, from k3_sass) would
+    take at the card's int32 rate."""
+    from delly_tpu_torch.ops.gotoh_banded_cuda import (
+        banded_forward, banded_traceback,
+    )
+
+    ms = tb_ms = 0.0
+    sass_ops = 0
+    tot = {"plain_ms": 0.0, "tb_plain_ms": 0.0, "rows": 0, "cells": 0,
+           "in_bytes": 0, "steps": 0, "jobs": 0}
+    shapes = []
+    for i, fargs in enumerate(launches):
+        r = banded_vs_plain(dev, fargs, f"long-split launch {i}")
+        err = max(err, r["err"], r["tb_err"])
+        for k in tot:
+            tot[k] += r[k]
+        _n, alu, threads = sass_loops[r["B"]]
+        sass_ops += r["rows"] * threads * alu
+        best, bits = banded_forward(*fargs)
+        ms += cuda_ms(lambda: banded_forward(*fargs), reps=5)
+        tb_ms += cuda_ms(lambda: banded_traceback(bits, fargs[2], fargs[3]),
+                         reps=5)
+        shapes.append(f"{r['jobs']}x(M={r['M']}, B={r['B']})")
+    print(f"K3/K3-tb long-split launches ({', '.join(shapes)}): equal")
+    desc = (f"{tot['jobs']} jobs in {len(launches)} launches: "
+            f"{', '.join(shapes)}; {tot['rows']} DP rows")
+    G = tot["jobs"]
+    sass_ms = sass_ops / INT32_OPS_PER_S * 1e3
+    print(f"K3 long-split launches: {sass_ops} integer instructions in "
+          f"their row loops, {sass_ms:.4f} ms at the int32 rate")
+    k3 = {"ms": ms, "plain_ms": tot["plain_ms"], "max_abs_err": err,
+          "shapes": desc, "row_loop_integer_instructions": sass_ops,
+          "row_loop_ms_at_int32_rate": sass_ms,
+          **bound(tot["in_bytes"] + tot["cells"] + 4 * G,
+                  tot["cells"] * BANDED_OPS_PER_CELL)}
+    tb = {"ms": tb_ms, "plain_ms": tot["tb_plain_ms"], "max_abs_err": err,
+          "shapes": f"{desc}; {tot['steps']} walk steps",
+          **bound(2 * tot["steps"] + 12 * G,
+                  tot["steps"] * BANDED_TB_OPS_PER_STEP)}
+    return k3, tb
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the sr slice end to end
 # ---------------------------------------------------------------------------
 
-def run_card(argv, details, label):
+def recorder(record: list):
+    """Stand-in maker that appends each call's arguments to `record`."""
+    def make(fn):
+        def recorded(*args):
+            record.append(args)
+            return fn(*args)
+        return recorded
+    return make
+
+
+def timer(acc: dict):
+    """Stand-in maker that adds each call's seconds and count to `acc`."""
+    def make(fn):
+        def timed_call(*args, **kwargs):
+            t0 = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc["s"] += time.time() - t0
+                acc["calls"] += 1
+        return timed_call
+    return make
+
+
+def msa_timers() -> tuple:
+    """(acc, wraps) that time, in one run, the host full DP (merges the
+    kernels do not serve), the corridor batches (K3/K3-tb with the host
+    packing around them) and the batched LCS of the MSA."""
+    from delly_tpu_torch.ops import gotoh_cuda, msa
+
+    acc = {k: {"s": 0.0, "calls": 0}
+           for k in ("host_full_dp", "corridor_batches", "lcs_pairs")}
+    wraps = [(gotoh_cuda, "gotoh_host", timer(acc["host_full_dp"])),
+             (msa, "gotoh", timer(acc["host_full_dp"])),
+             (msa, "_banded_or_full", timer(acc["corridor_batches"])),
+             (msa, "lcs_pairs", timer(acc["lcs_pairs"]))]
+    return acc, wraps
+
+
+def print_msa_split(label, stages, acc, details) -> None:
+    asm = stages["Split-read assembly"]
+    print(f"{label}: split-read assembly {asm:.3f}s; " + ", ".join(
+        f"{k} {v['s']:.3f}s in {v['calls']} calls" for k, v in acc.items())
+        + f"; host full DP {acc['host_full_dp']['s'] / asm:.1%} of it")
+    details["runs"][label]["assembly_split"] = acc
+
+
+def run_card(argv, details, label, wraps=()):
+    """One CLI run on the card between a reset and a read of the launch
+    counters, timed by stage. `wraps` holds (module, name, make) triples:
+    module.name is replaced by make(module.name) for the run and put
+    back after it."""
     from delly_tpu_torch.cli import main
     from delly_tpu_torch.parallel import dispatch
     from delly_tpu_torch.utils import log
 
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _make in wraps]
+    for (mod, name, make), (_m, _n, fn) in zip(wraps, saved):
+        setattr(mod, name, make(fn))
     marks = []
     log.hook = lambda msg: marks.append((time.time(), msg))
     dispatch.reset()
@@ -288,6 +615,8 @@ def run_card(argv, details, label):
         rc = main(argv)
     finally:
         log.hook = None
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     import torch
     torch.cuda.synchronize()
     t1 = time.time()
@@ -304,7 +633,7 @@ def run_card(argv, details, label):
         print(f"  {k}: {v:.3f}s")
     details.setdefault("runs", {})[label] = {
         "wall_s": t1 - t0, "stages": stages, "launches": counts}
-    return counts
+    return counts, stages
 
 
 def svmix_score(vcf, truth):
@@ -336,8 +665,10 @@ def vcf_body(path):
 
 
 def phase_e2e(work, details):
+    from delly_tpu_torch.ops import gotoh_banded_cuda
     from delly_tpu_torch.testing.synth import (
-        make_deep_geno_dataset, make_multi_sv_dataset,
+        make_deep_geno_dataset, make_long_split_dataset,
+        make_multi_sv_dataset,
     )
 
     t0 = time.time()
@@ -346,7 +677,9 @@ def phase_e2e(work, details):
     dg_bam, dg_fa, _dg_truth = make_deep_geno_dataset(
         work, n_contigs=4, contig_len=1_500_000, dels_per_contig=150,
         coverage=45)
-    print(f"datasets: svmix and deepgeno generated in {time.time() - t0:.1f}s")
+    ls_bam, ls_fa, ls_truth = make_long_split_dataset(work, **LONG_SPLIT)
+    print(f"datasets: svmix, deepgeno and long-split generated in "
+          f"{time.time() - t0:.1f}s")
     details["gen_s"] = time.time() - t0
 
     p = lambda name: os.path.join(work, name)  # noqa: E731
@@ -356,24 +689,42 @@ def phase_e2e(work, details):
                         dg_bam],
         "sr -v deepgeno": ["sr", "-v", p("deepgeno.cuda.vcf"), "-g", dg_fa,
                            "-o", p("regeno.{}.vcf"), dg_bam],
+        "sr long-split": ["sr", "-g", ls_fa, "-o", p("longsplit.{}.vcf"),
+                          ls_bam],
     }
+    # the kernels each run's path must have launched
+    path = {"sr svmix": ("myers", "gotoh", "gotoh_tb"),
+            "sr deepgeno": ("myers", "gotoh", "gotoh_tb"),
+            "sr -v deepgeno": ("myers",),
+            "sr long-split": ("myers", "gotoh_banded", "gotoh_banded_tb")}
     launches = {}
+    k3_launches = []
     for label, argv in cmds.items():
         argv = [a.replace("{}", "cuda") if a.endswith(".{}.vcf") else a
                 for a in argv]
-        launches[label] = run_card(argv, details, label)
+        wraps = []
+        if label == "sr long-split":
+            acc, wraps = msa_timers()
+            wraps.append((gotoh_banded_cuda, "banded_forward",
+                          recorder(k3_launches)))
+        launches[label], stages = run_card(argv, details, label, wraps)
+        if wraps:
+            print_msa_split(label, stages, acc, details)
         need(launches[label]["host_routes"] == 0,
              f"{label}: {launches[label]['host_routes']} host routes")
-        need(launches[label]["myers"] > 0, f"{label}: K1 never launched")
-        if label != "sr -v deepgeno":
-            need(launches[label]["gotoh"] > 0 and
-                 launches[label]["gotoh_tb"] > 0,
-                 f"{label}: K2/K2-tb never launched")
+        for name in path[label]:
+            need(launches[label][name] > 0, f"{label}: {name} never launched")
 
     tp, nt, good, nc = svmix_score(p("svmix.cuda.vcf"), sv_truth)
     print(f"svmix: recall {tp}/{nt}, precision {good}/{nc}")
     details["svmix"] = {"tp": tp, "truth": nt, "good": good, "calls": nc}
     need(tp == nt == 36 and good == nc, "svmix truth check")
+    tp, nt, good, nc = svmix_score(p("longsplit.cuda.vcf"), ls_truth)
+    print(f"long-split: recall {tp}/{nt}, precision {good}/{nc}")
+    details["long_split"] = {"tp": tp, "truth": nt, "good": good,
+                             "calls": nc, "k3_jobs": sum(
+                                 len(f[0]) for f in k3_launches)}
+    need(tp == nt == 24 and good == nc, "long-split truth check")
 
     # the same commands on the host (the plain versions), one after the
     # other, each with its stage profile (DELLY_TPU_PROFILE)
@@ -399,11 +750,38 @@ def phase_e2e(work, details):
             print(f"  {k}: {v:.3f}s")
         details.setdefault("cpu_runs", {})[label] = {"process_wall_s": wall,
                                                      **stages}
-    for stem in ("svmix", "deepgeno", "regeno"):
+    for stem in ("svmix", "deepgeno", "regeno", "longsplit"):
         a, b = vcf_body(p(f"{stem}.cuda.vcf")), vcf_body(p(f"{stem}.cpu.vcf"))
         need(a == b, f"{stem}: card and cpu VCFs differ")
         print(f"{stem}: card VCF == cpu VCF ({len(a)} lines)")
-    return launches
+    return launches, k3_launches
+
+
+def phase_host_dp(work, details) -> None:
+    """`sr` on the card on long split reads with 4 reads per DEL (one
+    1 Mb contig, 2 DELs): the MSA then merges profiles wider than K2's
+    4,096 columns, which take the full DP on the host as host routes.
+    Checks the calls and prints the seconds of split-read assembly spent
+    in the host full DP, in the corridor batches (K3/K3-tb with the host
+    packing around them) and in the MSA's batched LCS."""
+    from delly_tpu_torch.testing.synth import make_long_split_dataset
+
+    bam, fa, truth = make_long_split_dataset(
+        work, n_contigs=1, contig_len=1_000_000, dels_per_contig=2,
+        reads_per_del=4, read_len=12_000, jitter=200,
+        pairs_per_contig=20_000, name="hostdp")
+    acc, wraps = msa_timers()
+    vcf = os.path.join(work, "hostdp.vcf")
+    label = "sr long-split, 4 reads per DEL"
+    counts, stages = run_card(["sr", "-g", fa, "-o", vcf, bam], details,
+                              label, wraps)
+    tp, nt, good, nc = svmix_score(vcf, truth)
+    need(tp == nt == 2 and good == nc, f"{label}: truth check")
+    need(counts["host_routes"] > 0
+         and acc["host_full_dp"]["calls"] == counts["host_routes"],
+         f"{label}: {counts['host_routes']} host routes, "
+         f"{acc['host_full_dp']['calls']} host full-DP calls timed")
+    print_msa_split(label, stages, acc, details)
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +802,18 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}: {kind}, "
           f"{torch.cuda.device_count()} visible")
-    details = {"card": card_line, "kind": kind}
+    global INT32_OPS_PER_S
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    mhz = float(clk.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    INT32_OPS_PER_S = INT32_LANES_PER_SM * sms * mhz * 1e6
+    print(f"int32 peak: {INT32_LANES_PER_SM} lanes x {sms} SMs x {mhz:.0f} "
+          f"MHz (clocks.max.sm) = {INT32_OPS_PER_S:.4g} operations/s")
+    details = {"card": card_line, "kind": kind, "int32_ops_per_s": {
+        "lanes_per_sm": INT32_LANES_PER_SM, "sms": sms, "sm_mhz": mhz,
+        "rate": INT32_OPS_PER_S}}
     dev = torch.device("cuda", 0)
     work = os.path.join(REPO, "build", "smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -433,10 +822,14 @@ def main() -> int:
     t0 = time.time()
     try:
         phase_build(details)
+        sass_loops = k3_sass(details)
         rng = np.random.default_rng(SEED)
         k1 = check_myers(dev, rng, details)
         k2, tb = check_gotoh(dev, rng, details)
-        launches = phase_e2e(work, details)
+        err3 = check_banded(dev, rng, details)
+        launches, k3_launches = phase_e2e(work, details)
+        phase_host_dp(work, details)
+        k3, k3tb = measure_banded(dev, k3_launches, err3, sass_loops)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     details["total_s"] = time.time() - t0
@@ -451,7 +844,11 @@ def main() -> int:
             ("gotoh", "delly_tpu_torch/csrc/gotoh.cu",
              "delly_tpu/ops/gotoh_pallas.py:52", k2),
             ("gotoh_tb", "delly_tpu_torch/csrc/gotoh_tb.cu",
-             "delly_tpu/ops/gotoh_pallas.py:209", tb)):
+             "delly_tpu/ops/gotoh_pallas.py:209", tb),
+            ("gotoh_banded", "delly_tpu_torch/csrc/gotoh_banded.cu",
+             "delly_tpu/ops/gotoh_banded.py:192", k3),
+            ("gotoh_banded_tb", "delly_tpu_torch/csrc/gotoh_banded_tb.cu",
+             "delly_tpu/ops/gotoh_banded.py:342", k3tb)):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": total(name),
@@ -461,15 +858,16 @@ def main() -> int:
             "bound_by": meas["bound_by"], "bound_bytes": meas["bytes"],
             "bytes_ms": meas["bytes_ms"], "bound_ops": meas["ops"],
             "ops_ms": meas["ops_ms"], "library_ms": None,
-            "shapes": meas["shapes"]})
+            "shapes": meas["shapes"],
+            **{k: v for k, v in meas.items() if k.startswith("row_loop")}})
     details["kernels"] = kernels
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
+    # the run used one card, cuda:0, whatever else is visible
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
 

@@ -1,9 +1,11 @@
 """Banded (corridor) affine-gap Gotoh for long sequences, host side.
 
 The host part of the JAX package's ops/gotoh_banded.py: the corridor
-schedule, the numpy DP and its traceback. The Pallas kernel K3
-(gotoh_banded.py:192) is not ported yet; merges that need the corridor
-run here.
+schedule, the numpy DP and its traceback. They are the oracle of the
+kernels K3 and K3-tb (ops/gotoh_banded_cuda.py, which replaces the
+Pallas kernel gotoh_banded.py:192 and its walk :342), and serve the
+jobs those kernels do not take (longer than 32,768 columns, or letters
+outside ACGTN-).
 
 SURVEY §5 "long-context banded device DP": the full-matrix Pallas
 kernel (ops/gotoh_pallas.py) serves dimensions up to MAX_K=4096; very

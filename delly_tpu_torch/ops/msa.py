@@ -117,59 +117,63 @@ _BANDED_MIN_DIM = 8192
 
 def _long_pair(a1, a2) -> bool:
     """Sequence-vs-sequence merges beyond _BANDED_MIN_DIM take the
-    corridor DP (ops/gotoh_banded), O(m*band) instead of O(m*n); the
-    reference's consensus windows never reach this size. The banded
-    kernel is not in this slice, so these run on the host and count as
-    host routes."""
+    corridor DP, O(m*band) instead of O(m*n), on the kernels K3 and
+    K3-tb (ops/gotoh_banded_cuda); the reference's consensus windows
+    never reach this size. `sr` meets them when its split reads are
+    longer than 8,192 bases."""
     return (a1.shape[0] == 1 and a2.shape[0] == 1
             and max(a1.shape[1], a2.shape[1]) > _BANDED_MIN_DIM
             and min(a1.shape[1], a2.shape[1]) >= 1)
 
 
 def _gotoh_dispatch(a1, a2, ac, sc):
-    """One merge: the corridor branch for long sequence pairs, else the
-    Gotoh kernel K2 as a batch of one."""
-    if _long_pair(a1, a2):
-        dispatch.count("host_routes")
-        return _banded_or_full(a1, a2, ac, sc)
-    from delly_tpu_torch.ops.gotoh_cuda import gotoh_batch
-    return gotoh_batch([(a1, a2)], ac=ac, sc=sc)[0]
+    """One merge: a batch of one."""
+    return _gotoh_dispatch_batch([(a1, a2)], ac, sc)[0]
 
 
-def _banded_or_full(a1, a2, ac, sc):
-    """Long-context sequence merge: corridor Gotoh with a band sized
-    from the Myers edit distance, validated by checking the traceback
-    never rides an interior corridor edge; any doubt falls back to the
-    exact full DP."""
-    m, n = a1.shape[1], a2.shape[1]
-    d = None
-    try:
-        from delly_tpu_torch import native
-        if native.get_lib() is not None:
-            sc_d = native.edist_scan(a1[0].tobytes(), a2[0].tobytes(),
-                                     0, None)
-            if sc_d is not None:
-                d = sc_d[0]
-    except Exception:
-        d = None
-    if d is None:
-        return gotoh(a1, a2, ac=ac, sc=sc)
+def _corridor_band(a1, a2):
+    """The corridor width of a long pair, from its Myers edit distance
+    d: the least power of two from 512 up that holds 2 * (d + 8) + 256,
+    or None when d is unknown (no native library) or the band would be
+    wider than 4,096."""
+    from delly_tpu_torch import native
+    sc_d = native.edist_scan(a1[0].tobytes(), a2[0].tobytes(), 0, None)
+    if sc_d is None:
+        return None
+    d = sc_d[0]
     band = 512
     while band < 2 * (d + 8) + 256:
         band *= 2
-    if band > 4096:
-        return gotoh(a1, a2, ac=ac, sc=sc)
-    from delly_tpu_torch.ops.gotoh_banded import gotoh_banded_host
-    if n > m:
-        best, merged = gotoh_banded_host(a2, a1, ac=(ac[1], ac[0]),
-                                         sc=sc, band=band)
-        merged = np.concatenate([merged[1:], merged[:1]], axis=0)
-    else:
-        best, merged = gotoh_banded_host(a1, a2, ac=ac, sc=sc,
-                                         band=band)
-    if _trace_touches_edge(merged, m, n, band):
-        return gotoh(a1, a2, ac=ac, sc=sc)
-    return best, merged
+    return band if band <= 4096 else None
+
+
+def _banded_or_full(pairs: list, ac, sc) -> list:
+    """Long-context sequence merges: corridor Gotoh with a band sized
+    from the Myers edit distance, one gotoh_banded_batch call per band
+    (it buckets by M and end-gap config), validated by checking the
+    traceback never rides an interior corridor edge; any doubt falls
+    back to the exact full DP on the host, counted as a host route."""
+    from delly_tpu_torch.ops.gotoh_banded_cuda import gotoh_banded_batch
+    out = [None] * len(pairs)
+    by_band = {}
+    for k, (a1, a2) in enumerate(pairs):
+        band = _corridor_band(a1, a2)
+        if band is None:
+            dispatch.count("host_routes")
+            out[k] = gotoh(a1, a2, ac=ac, sc=sc)
+        else:
+            by_band.setdefault(band, []).append(k)
+    for band, ks in sorted(by_band.items()):
+        res = gotoh_banded_batch([pairs[k] for k in ks], ac=ac, sc=sc,
+                                 band=band)
+        for k, (best, merged) in zip(ks, res):
+            a1, a2 = pairs[k]
+            if _trace_touches_edge(merged, a1.shape[1], a2.shape[1], band):
+                dispatch.count("host_routes")
+                out[k] = gotoh(a1, a2, ac=ac, sc=sc)
+            else:
+                out[k] = (best, merged)
+    return out
 
 
 def _trace_touches_edge(merged, m, n, band):
@@ -262,19 +266,22 @@ def distance_matrix_from_lcs(seqs: list, ls) -> np.ndarray:
 
 
 def _gotoh_dispatch_batch(pairs: list, ac, sc):
-    """Batched merge dispatch: every merge of the round goes through one
-    gotoh_batch call (kernel K2, with K2-tb for the traceback), except
-    long sequence pairs, which take the host corridor branch."""
+    """Batched merge dispatch: the long sequence pairs of the round go
+    to the corridor kernels K3/K3-tb together (_banded_or_full), every
+    other merge through one gotoh_batch call (K2, with K2-tb for the
+    traceback)."""
     out = [None] * len(pairs)
-    batch = []
+    groups = ([], [])
     for k, (a1, a2) in enumerate(pairs):
-        if _long_pair(a1, a2):
-            out[k] = _gotoh_dispatch(a1, a2, ac, sc)
-        else:
-            batch.append(k)
-    if batch:
+        groups[_long_pair(a1, a2)].append(k)
+    short, long_ = groups
+    if long_:
+        for k, res in zip(long_, _banded_or_full(
+                [pairs[k] for k in long_], ac, sc)):
+            out[k] = res
+    if short:
         from delly_tpu_torch.ops.gotoh_cuda import gotoh_batch
-        for k, res in zip(batch, gotoh_batch([pairs[k] for k in batch],
+        for k, res in zip(short, gotoh_batch([pairs[k] for k in short],
                                              ac=ac, sc=sc)):
             out[k] = res
     return out

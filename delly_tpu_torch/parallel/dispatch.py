@@ -5,9 +5,11 @@ kernel, and nowhere else, in the manner of the JAX package's
 ``engine_hits``. A run can then show that its main path really went
 through the kernels (chip_smoke.py reads them around the ``sr`` runs).
 ``host_routes`` counts MSA merges that took a host DP instead of a
-kernel: merges above 8,192 columns (the banded kernel is not in this
-slice) and merges the Gotoh kernel does not serve (``_eligible`` in
-ops/gotoh_cuda.py).
+kernel: merges the Gotoh kernel does not serve (``_eligible`` in
+ops/gotoh_cuda.py); long sequence merges whose corridor would be wider
+than 4,096 or whose traceback touches the corridor's edge (ops/msa.py);
+and the jobs that ``gotoh_banded_batch`` (ops/gotoh_banded_cuda.py)
+sends to a host DP.
 
 This slice has no device mesh: every kernel runs on ``cuda:0``.
 """
@@ -17,7 +19,7 @@ from __future__ import annotations
 import threading
 from collections import Counter
 
-KERNELS = ("myers", "gotoh", "gotoh_tb")
+KERNELS = ("myers", "gotoh", "gotoh_tb", "gotoh_banded", "gotoh_banded_tb")
 
 launches = Counter()
 _lock = threading.Lock()

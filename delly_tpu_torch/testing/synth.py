@@ -11,7 +11,11 @@ datasets without importing the JAX package:
 - ``make_deep_geno_dataset``: many het DELs under deep coverage, the
   genotyping regime.
 
-Same seed and arguments give the same bytes as tests/bamsynth.py.
+Same seed and arguments give the same bytes as tests/bamsynth.py. One
+generator is the port's own, with no counterpart there:
+
+- ``make_long_split_dataset``: het DELs seen through split reads longer
+  than 8,192 bases, the regime of the corridor MSA merge (K3/K3-tb).
 """
 
 import random
@@ -278,6 +282,67 @@ def make_multi_sv_dataset(tmpdir, n_contigs=4, contig_len=400_000,
             rec(tb, bp_b, f"x{qid}", 0x800, tb, bp_b, 60,
                 [("S", off), ("M", rl - off)], -1, -1, 0, seq)
             qid += 1
+
+    recs.sort(key=lambda r: (r[0], r[1]))
+    blobs = []
+    for tid, (bpos, bbuf, rec_w) in enumerate(bulk):
+        ev = [(p, b) for t, p, b in recs if t == tid]
+        blobs += _merge_sorted_blobs(bpos, bbuf, rec_w, ev)
+    bam = f"{tmpdir}/{name}.bam"
+    fa = f"{tmpdir}/{name}.fa"
+    write_bam(bam, contigs, blobs)
+    write_fasta(fa, contigs)
+    return bam, fa, truth
+
+
+def make_long_split_dataset(tmpdir, n_contigs=1, contig_len=400_000,
+                            dels_per_contig=1, reads_per_del=2,
+                            read_len=12_000, jitter=200,
+                            pairs_per_contig=6000, del_len=5000, seed=211,
+                            name="longsplit"):
+    """Het DELs seen through long split reads, the regime where `sr`'s
+    split-read MSA merges sequences longer than 8,192 bases and takes
+    the corridor DP. Per DEL, `reads_per_del` reads of the deleted
+    haplotype span the junction: each starts read_len // 2 before it,
+    with its start and its length each shifted uniformly within
+    +-`jitter`; the primary record is M,S at the read's start and the
+    supplementary S,M at the DEL's end, under the same name. Normal
+    100 bp pairs give the library statistics. Returns (bam, fasta,
+    truth) with truth [("DEL", chrom, start, end)]."""
+    rng = random.Random(seed)
+    contigs = [(f"chr{c + 1}", random_contig(rng, contig_len))
+               for c in range(n_contigs)]
+    rl, isize = 100, 400
+    recs = []
+    bulk = []
+    truth = []
+    qid = 0
+    for tid, (cname, ref) in enumerate(contigs):
+        spacing = contig_len // (dels_per_contig + 1)
+        for k in range(dels_per_contig):
+            bp1 = spacing * (k + 1)
+            bp2 = bp1 + del_len
+            truth.append(("DEL", cname, bp1, bp2))
+            for _ in range(reads_per_del):
+                start = bp1 - read_len // 2 + rng.randint(-jitter, jitter)
+                length = read_len + rng.randint(-jitter, jitter)
+                off = bp1 - start
+                seq = ref[start:bp1] + ref[bp2:bp2 + length - off]
+                recs.append((tid, start, encode_record(
+                    f"l{qid}", 0x0, tid, start, 60,
+                    [("M", off), ("S", length - off)], -1, -1, 0, seq)))
+                recs.append((tid, bp2, encode_record(
+                    f"l{qid}", 0x800, tid, bp2, 60,
+                    [("S", off), ("M", length - off)], -1, -1, 0, seq)))
+                qid += 1
+        g = np.random.default_rng(rng.randint(0, 2**31))
+        isz = isize + g.integers(-60, 61, size=pairs_per_contig)
+        p1 = g.integers(0, contig_len - isz.max() - 1,
+                        size=pairs_per_contig)
+        ref_u8 = np.frombuffer(ref.encode(), dtype=np.uint8)
+        bulk.append(_bulk_pair_records(tid, ref_u8, p1, isz, qid, rl=rl,
+                                       seed=rng.randint(0, 2**31)))
+        qid += pairs_per_contig
 
     recs.sort(key=lambda r: (r[0], r[1]))
     blobs = []

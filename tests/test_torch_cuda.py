@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from delly_tpu_torch.ops import gotoh_cuda
+from delly_tpu_torch.ops import gotoh_banded_cuda, gotoh_cuda
 from delly_tpu_torch.ops.gotoh import DnaScore, gotoh, to_align
 from delly_tpu_torch.ops.myers import alphabet_lut, myers_plain
 from delly_tpu_torch.ops.myers_cuda import myers
@@ -103,6 +103,77 @@ def test_gotoh_kernels_match_plain(card, ac, n_jobs, lo, hi, rows):
         m, n, k = int(ml[g]), int(nl[g]), int(lens[g])
         assert torch.equal(bits[g, :m, :n].cpu(), want_bits[g, :m, :n])
         assert torch.equal(codes[g, :k].cpu(), want_codes[g, :k])
+
+
+def _banded_case(seed, n_jobs, lo, hi):
+    """Long pairs of a random sequence and a mutated copy (n <= m)."""
+    rng = random.Random(seed)
+    jobs = []
+    for _ in range(n_jobs):
+        base = _rand_seq(rng, lo, hi)
+        other = _mutate(rng, base)
+        a1, a2 = sorted((to_align(base), to_align(other)),
+                        key=lambda a: -a.shape[1])
+        jobs.append((a1, a2))
+    M = gotoh_banded_cuda._bucket_m(max(a.shape[1] for a, _ in jobs))
+    return [torch.from_numpy(x) for x in gotoh_banded_cuda.pack_jobs(jobs, M)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac", ACS)
+@pytest.mark.parametrize("band", gotoh_banded_cuda.BANDS)
+@pytest.mark.parametrize("n_jobs,lo,hi", [(8, 200, 256), (2, 3000, 4000)])
+def test_gotoh_banded_kernels_match_plain(card, ac, band, n_jobs, lo, hi):
+    s1, s2, ml, nl = _banded_case(band + lo, n_jobs, lo, hi)
+    args = (band, ac[0], ac[1], 5, -4, -10, -1)
+    want_best, want_bits = gotoh_banded_cuda.banded_forward_plain(
+        s1, s2, ml, nl, *args)
+    want_codes, want_lens = gotoh_banded_cuda.banded_traceback_plain(
+        want_bits, ml, nl)
+    dev = [x.to(card) for x in (s1, s2, ml, nl)]
+    dispatch.reset()
+    best, bits = gotoh_banded_cuda.banded_forward(*dev, *args)
+    codes, lens = gotoh_banded_cuda.banded_traceback(bits, dev[2], dev[3])
+    torch.cuda.synchronize()
+    assert dispatch.snapshot()["gotoh_banded"] == 1
+    assert dispatch.snapshot()["gotoh_banded_tb"] == 1
+    assert torch.equal(best.cpu(), want_best)
+    assert torch.equal(lens.cpu(), want_lens)
+    for g in range(len(ml)):
+        m, k = int(ml[g]), int(lens[g])
+        assert torch.equal(bits[g, :m].cpu(), want_bits[g, :m])
+        assert torch.equal(codes[g, :k].cpu(), want_codes[g, :k])
+
+
+@pytest.mark.cuda
+def test_gotoh_banded_batch_on_card_matches_host(card, monkeypatch):
+    """gotoh_banded_batch on the card, swapped jobs and n = 1 included,
+    equals the host corridor per job."""
+    from delly_tpu_torch.ops.gotoh_banded import gotoh_banded_host
+    from delly_tpu_torch.utils import torchenv
+
+    rng = random.Random(9)
+    base = _rand_seq(rng, 1500, 2000)
+    other = _mutate(rng, base)
+    jobs = [(base, other), (other, base), (base, "A"), ("C", base)]
+    monkeypatch.setenv(torchenv.ENV, "cuda")
+    torchenv.reset()
+    try:
+        dispatch.reset()
+        got = gotoh_banded_cuda.gotoh_banded_batch(jobs, ac=(True, True),
+                                                   band=1024)
+    finally:
+        torchenv.reset()
+    assert dispatch.snapshot()["host_routes"] == 0
+    for (x, y), (s, mg) in zip(jobs, got):
+        a1, a2 = to_align(x), to_align(y)
+        if a2.shape[1] > a1.shape[1]:
+            hs, hm = gotoh_banded_host(a2, a1, ac=(True, True), band=1024)
+            hm = np.concatenate([hm[1:], hm[:1]], axis=0)
+        else:
+            hs, hm = gotoh_banded_host(a1, a2, ac=(True, True), band=1024)
+        assert s == hs
+        np.testing.assert_array_equal(mg, hm)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,7 @@ equality (integer LCS lengths, consensus strings).
 import random
 
 import numpy as np
+import pytest
 
 import delly_tpu.ops.msa as jmsa
 import delly_tpu_torch.ops.msa as tmsa
@@ -67,22 +68,40 @@ def test_msa_single(torch_cpu):
         assert tmsa.msa(seqs, 2) == jmsa.msa(seqs, 2)
 
 
-def test_long_pairs_take_host_corridor(torch_cpu, monkeypatch):
-    """Sequence pairs above the corridor threshold keep the host corridor
-    branch and count as host routes (threshold lowered to test size)."""
+def _long_round(seed, distant):
+    """A merge round of two long sequence pairs and a short one; with
+    `distant`, the second long pair carries a 2,100-base insertion, so
+    its corridor would be wider than 4,096."""
+    rng = random.Random(seed)
+    as_row = lambda s: np.frombuffer(s.encode(), np.uint8)[None].copy()  # noqa: E731
+    pairs = []
+    for k in range(2):
+        base = _rand_seq(rng, 900, 1000)
+        other = _mutate(rng, base)
+        if distant and k == 1:
+            other = other[:100] + _rand_seq(rng, 2100, 2100) + other[100:]
+        pairs.append((as_row(base), as_row(other)))
+    pairs.append((as_row("ACGTACGT"), as_row("ACGAACGT")))
+    return pairs
+
+
+@pytest.mark.parametrize("distant, routes", [(False, 0), (True, 1)])
+def test_long_pairs_take_host_corridor(torch_cpu, monkeypatch, distant,
+                                       routes):
+    """Sequence pairs above the corridor threshold (lowered to test size)
+    take the corridor kernels' path with no host route, and merge as
+    the JAX package's host corridor branch does. A distant pair, whose
+    corridor would be wider than 4,096, takes the exact full DP on the
+    host instead: one host route, the same result."""
     monkeypatch.setattr(tmsa, "_BANDED_MIN_DIM", 300)
     monkeypatch.setattr(jmsa, "_BANDED_MIN_DIM", 300)
-    rng = random.Random(4)
-    base = _rand_seq(rng, 900, 1000)
-    a1 = np.frombuffer(base.encode(), np.uint8)[None].copy()
-    a2 = np.frombuffer(_mutate(rng, base).encode(), np.uint8)[None].copy()
-    short = np.frombuffer(b"ACGTACGT", np.uint8)[None].copy()
+    pairs = _long_round(4, distant)
+    assert (tmsa._corridor_band(*pairs[1]) is None) == distant
     dispatch.reset()
-    got = tmsa._gotoh_dispatch_batch([(a1, a2), (short, short)],
-                                     (True, True), tmsa.DnaScore())
-    assert dispatch.snapshot()["host_routes"] == 1
+    got = tmsa._gotoh_dispatch_batch(pairs, (True, True), tmsa.DnaScore())
+    assert dispatch.snapshot()["host_routes"] == routes
     want = [jmsa._gotoh_dispatch(x, y, (True, True), jmsa.DnaScore())
-            for x, y in [(a1, a2), (short, short)]]
+            for x, y in pairs]
     for (gs, gm), (ws, wm) in zip(got, want):
         assert gs == ws
         np.testing.assert_array_equal(gm, wm)
