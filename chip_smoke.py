@@ -7,32 +7,45 @@
    (csrc/gotoh_tb.cu), K3 (csrc/gotoh_banded.cu) and K3-tb
    (csrc/gotoh_banded_tb.cu) with nvcc for sm_90a, one process per
    source, all started together, printing the build seconds and the
-   -Xptxas -v register/spill lines. Counts the instructions of K3's row
-   loop in each of its instantiations (cuobjdump -sass of the built
-   library), beside the operations per cell its bound counts.
-2. Holds each kernel against its plain PyTorch version on the same
-   inputs, made from numpy.random.default_rng(seed), at the shapes of
-   the sr main path and beyond: K3/K3-tb in all four end-gap configs at
-   every band (512...4096) with M = 256, at every band with M = 16,384
-   (n = 1 included), m = 32,768 at band 4,096, and swapped and n = 1
-   jobs through gotoh_banded_batch against the host corridor.
-   Tolerance: exact equality (integer and byte outputs). Times kernel
-   and plain version with CUDA events.
+   -Xptxas -v register/spill lines; beside them K3 once more with
+   K3_COUNT_INTERIOR into a cubin, and the probes of PROBE_SRC below.
+   Counts, in cuobjdump -sass, the integer instructions of K1's column
+   loop per Myers word, of K2's row loop per cell, and of K3's interior
+   row loop per cell and per thread and row, beside the operations per
+   unit that each bound counts. Times the probes: ns per dependent
+   shared-memory byte load (one K3-tb walk step's floor), and ns per
+   block barrier and per cluster barrier of 2-16 blocks with a carry
+   through (distributed) shared memory (what splitting a K3 job over a
+   cluster would add per DP row).
+2. Holds K1 and K2/K2-tb against their plain PyTorch versions on the
+   same inputs, made from numpy.random.default_rng(seed), at the shapes
+   of the sr main path and beyond. Tolerance: exact equality (integer
+   and byte outputs). Times kernel and plain version with CUDA events.
 3. Generates the svmix, deepgeno and long-split datasets with the port's
    copy of the generators and runs `sr` on each, and `sr -v` on
    deepgeno, through the CLI entry point on the card, with the launch
    counters set to 0 just before each run and read just after. Checks
    svmix against its truth (36/36 recall, precision 1.0), long-split
    against its truth (24/24 DELs, precision 1.0, every merge on K3/K3-tb),
-   every kernel's launches, no host routes, and that the same four
-   commands with DELLY_TPU_TORCH_DEVICE=cpu (run one after the other,
-   with their stage profiles) write the same VCFs apart from ##fileDate.
-   Then runs `sr` on the card on long split reads with 4 reads per DEL
-   (2 DELs), where the profile merges wider than 4,096 columns take the
-   host full DP, and prints the share of split-read assembly spent there.
-   Then holds the long-split run's own K3/K3-tb launches against the
-   plain versions and times them: the kernels line's K3 numbers.
-4. Prints the kernels line, then as the last line
+   every kernel's launches and no host routes. Then runs `sr` on the card
+   on long split reads with 4 reads per DEL (2 DELs), where the profile
+   merges wider than 4,096 columns take the host full DP, and prints the
+   share of split-read assembly spent there.
+4. Starts the same four commands with DELLY_TPU_TORCH_DEVICE=cpu
+   (together, one torch thread each, with their stage profiles) in the
+   background, and meanwhile holds K3/K3-tb against their plain versions
+   in all four end-gap configs at every band (512...4096) with M = 256,
+   at every band with M = 16,384 (n = 1 included) and at m = 32,768;
+   swapped and n = 1 jobs through gotoh_banded_batch against the host
+   corridor, and one gotoh_banded_batch call that mixes every band. Then
+   holds the long-split run's own K3/K3-tb launches against the plain
+   versions and times the run's corridor jobs as a whole (its launches
+   at once, on their own streams), and each launch alone: the kernels
+   line's K3 and K3-tb numbers, with K3-tb's chain floor (the longest
+   walk's steps x the chase probe's step). The plain versions' times of
+   this phase are taken with the CPU runs going. Last, checks that every
+   card VCF equals its CPU run's apart from ##fileDate.
+5. Prints the kernels line, then as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}:
    the run uses one card, cuda:0.
 
@@ -67,20 +80,114 @@ SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_LANES_PER_SM = 64        # Hopper: half the SM's 128 FP32 lanes
 INT32_OPS_PER_S = None         # set by main(): lanes x SMs x SM clock
-MYERS_OPS_PER_WORD = 17        # integer ops of one Myers word update
-GOTOH_OPS_PER_CELL = 40        # integer ops of one K2 cell
+# Integer operations of one Myers word update, counted in the recurrence
+# of delly_tpu/ops/myers_pallas.py:294-318: Peq lookup 1, hin sign tests
+# 2, xv 1, eq2 1, xh (and, add, xor, or) 4, ph (or, not, or) 3, mh 1,
+# hout (2 shifts, sub) 3, ph and mh shift-ins (shift, or) 4, pv (or, not,
+# or) 3, mv 1. Once per target column, in the top word only: the score
+# delta (2 shifts, 2 ands, sub) 5, score add 1, mode min or final select 2.
+MYERS_OPS_PER_WORD = 24
+MYERS_OPS_PER_COLUMN = 8
+# Integer operations of one K2 cell, counted in the recurrence of
+# delly_tpu/ops/gotoh_pallas.py:103-158 with the row's constants and the
+# per-column end-gap choice hoisted: column 1, score (5 products, 4 sums,
+# depth product and max, abs, division, sign test, negation, select) 16,
+# V 3, diagonal 2, scan input 2, prefix max 1, H 3, S 1, H_prev + E 1,
+# direction bits (4 compares, 3 shifts, 3 ors) 10, best at column n
+# (compare, select) 2.
+GOTOH_OPS_PER_CELL = 42
 # Integer operations of one K3 (row, slot) cell, counted in the recurrence
 # of gotoh_banded_host (delly_tpu/ops/gotoh_banded.py:80-128) with the
 # row's constants hoisted: column 1, in-band test 1, vertical end-gap
 # choice 3, V 3, score (clip 3, compare, select) 5, diagonal 2, column-0
 # seed 2, scan input 2, prefix max 1, H 3, H clamp 1, S 1, H_prev + E 1,
 # direction bits (4 compares, 3 shifts, 3 ors) 10, column-0 and
-# out-of-band selects 3. phase_build counts what the kernel executes.
+# out-of-band selects 3. phase_build counts what the kernels execute.
 BANDED_OPS_PER_CELL = 39
 BANDED_TB_OPS_PER_STEP = 16    # K3-tb step: offset, byte load, branch
-LONG_SPLIT = dict(n_contigs=4, contig_len=1_000_000, dels_per_contig=6,
-                  reads_per_del=2, read_len=12_000, jitter=200,
-                  pairs_per_contig=20_000)
+PROBE_STEPS = 200_000
+
+PROBE_SRC = r'''
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+namespace cg = cooperative_groups;
+
+// one thread follows a chain of dependent byte loads through shared
+// memory (a full cycle over 256 bytes): one K3-tb walk step's floor
+__global__ void chase_kernel(int steps, int* out) {
+  __shared__ uint8_t buf[256];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    buf[i] = (uint8_t)((i * 73 + 41) & 255);
+  __syncthreads();
+  if (threadIdx.x) return;
+  int idx = 0;
+  for (int i = 0; i < steps; ++i) idx = buf[idx];
+  out[0] = idx;
+}
+
+// one block barrier per step; before it, warp 0 writes a carry into the
+// block's shared memory (double-buffered)
+__global__ void block_kernel(int steps, int* out) {
+  __shared__ int carry[2][32];
+  int v = threadIdx.x;
+  for (int i = 0; i < steps; ++i) {
+    if (threadIdx.x < 32) carry[i & 1][threadIdx.x] = v + 1;
+    __syncthreads();
+    v += carry[i & 1][threadIdx.x & 31];
+  }
+  if (v == 0x7fffffff) out[0] = v;
+}
+
+// the same with one cluster barrier per step, the carry written into the
+// next block's shared memory
+__global__ void cluster_kernel(int steps, int* out) {
+  cg::cluster_group cl = cg::this_cluster();
+  __shared__ int carry[2][32];
+  int v = threadIdx.x;
+  const unsigned peer_rank = (cl.block_rank() + 1) % cl.num_blocks();
+  for (int i = 0; i < steps; ++i) {
+    int* peer = cl.map_shared_rank(&carry[i & 1][0], peer_rank);
+    if (threadIdx.x < 32) peer[threadIdx.x] = v;
+    cl.sync();
+    v += carry[i & 1][threadIdx.x & 31];
+  }
+  if (v == 0x7fffffff) out[0] = v;
+}
+
+// cluster 0: chase_kernel; 1: block_kernel; 2..16: cluster_kernel with
+// that many blocks of `threads`
+extern "C" int probe(int cluster, int threads, int steps, void* out,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* o = static_cast<int*>(out);
+  if (cluster == 0) {
+    chase_kernel<<<1, 32, 0, st>>>(steps, o);
+    return (int)cudaGetLastError();
+  }
+  if (cluster == 1) {
+    block_kernel<<<1, threads, 0, st>>>(steps, o);
+    return (int)cudaGetLastError();
+  }
+  if (cluster > 8) {
+    cudaError_t e = cudaFuncSetAttribute(
+        cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, cluster_kernel, steps, o);
+}
+'''
 
 
 def fail(msg: str) -> None:
@@ -134,7 +241,10 @@ def bound(nbytes: float, ops: float) -> dict:
 # Phase 1: card and build
 # ---------------------------------------------------------------------------
 
-def phase_build(details: dict) -> None:
+def phase_build(details: dict) -> tuple:
+    """Builds every kernel and, beside them, K3 with K3_COUNT_INTERIOR
+    into a cubin for its SASS count and PROBE_SRC into a library.
+    Returns (the cubin's path, the probe library's path)."""
     from delly_tpu_torch import native
     from delly_tpu_torch.ops import _build
 
@@ -147,11 +257,29 @@ def phase_build(details: dict) -> None:
 
     t = threading.Thread(target=build_host)
     t.start()                       # the host library builds meanwhile
+    cubin = os.path.join(_build.BUILD_DIR, "k3_count_interior.cubin")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    count = subprocess.Popen(
+        [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-cubin", "-DK3_COUNT_INTERIOR", "-o", cubin,
+         os.path.join(_build.CSRC, "gotoh_banded.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    probe_src = os.path.join(_build.BUILD_DIR, "probes.cu")
+    with open(probe_src, "w") as fh:
+        fh.write(PROBE_SRC)
+    probe_lib = probe_src[:-3] + ".so"
+    probe = subprocess.Popen(
+        [_build._nvcc(), *_build.FLAGS, "-o", probe_lib, probe_src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     secs = _build.build()
+    log, _ = count.communicate()
+    probe_log, _ = probe.communicate()
     wall = time.time() - t0
     t.join()
+    need(count.returncode == 0, f"K3 count build failed: {log[-1500:]}")
+    need(probe.returncode == 0, f"probe build failed: {probe_log[-1500:]}")
     need(host.get("lib") is not None, "native host library did not build")
-    print(f"build: {wall:.1f}s wall for {len(secs)} nvcc processes "
+    print(f"build: {wall:.1f}s wall for {len(secs) + 2} nvcc processes "
           f"({', '.join(f'{k} {v:.1f}s' for k, v in secs.items())}); "
           f"host library ready after {host['s']:.1f}s")
     for name in _build.SOURCES:
@@ -160,6 +288,41 @@ def phase_build(details: dict) -> None:
                                      "Function properties")):
                 print(f"  ptxas[{name}]: {ln.strip()}")
     details["build_s"] = {"wall": wall, "host_library": host["s"], **secs}
+    return cubin, probe_lib
+
+
+def phase_probes(dev, lib_path: str, details: dict) -> float:
+    """Times PROBE_SRC's kernels, PROBE_STEPS steps each, with CUDA
+    events: ns per dependent shared-memory byte load, and ns per block
+    barrier and per cluster barrier (2, 4, 8, 16 blocks) at 256 and 512
+    threads. Returns the first."""
+    import ctypes
+
+    import torch
+
+    from delly_tpu_torch.ops import _build
+
+    fn = ctypes.CDLL(lib_path).probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def ns(cluster, threads):
+        ms = cuda_ms(lambda: _build.check(fn(
+            cluster, threads, PROBE_STEPS, out.data_ptr(),
+            _build.stream_ptr(dev)), "probe"), reps=3)
+        return ms * 1e6 / PROBE_STEPS
+
+    step = ns(0, 32)
+    bar = {f"{c}x{t}": ns(c, t) for t in (256, 512) for c in (1, 2, 4, 8, 16)}
+    print(f"probes: {step:.3f} ns per dependent shared-memory byte load; ns "
+          f"per barrier with a carry, blocks x threads (1 = block barrier, "
+          f"more = a cluster): " + ", ".join(f"{k} {v:.1f}"
+                                             for k, v in bar.items()))
+    details["probes"] = {"steps": PROBE_STEPS, "smem_step_ns": step,
+                         "barrier_ns": bar}
+    return step
 
 
 # SASS opcodes that are no integer work: memory, shuffles, barriers,
@@ -167,21 +330,26 @@ def phase_build(details: dict) -> None:
 # opcodes run once per warp and are left out too
 NON_ALU = ("LD", "ST", "ATOM", "RED", "SHFL", "BAR", "BRA", "BSSY", "BSYNC",
            "BREAK", "WARPSYNC", "NOP", "EXIT", "S2", "CS2R", "MEMBAR",
-           "DEPBAR", "I2F", "F2I", "MUFU", "U")
+           "DEPBAR", "I2F", "F2I", "MUFU", "U", "CALL", "RET")
 SASS_INS = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);")
 
 
-def k3_row_loops(sass: str) -> dict:
-    """{(CPT, T): (instructions, integer instructions)} of the row loop of
-    each banded_kernel<CPT, T> in `cuobjdump -sass` text: the largest
-    loop (a backward branch and its target) that holds a block barrier.
-    A static count: the unrolled loop over the scan's warp totals counts
-    once, whatever the thread's warp index."""
+def sass_loops(path: str, kernel: str, barrier: bool) -> dict:
+    """{template arguments: (instructions, integer instructions)} of the
+    main loop of each instantiation of `kernel` in `cuobjdump -sass` of
+    the library or cubin at `path`: the largest loop (a backward branch
+    and its target), holding a block barrier if `barrier`. A static
+    count: every instruction of the loop body counts once."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
     loops = {}
     for fn in sass.split("Function : ")[1:]:
-        cpt, t = map(int, re.search(r"banded_kernelILi(\d+)ELi(\d+)E",
-                                    fn).groups())
+        name = fn.split(None, 1)[0]
+        if f"{len(kernel)}{kernel}I" not in name:
+            continue
+        targs = tuple(int(x) for x in re.findall(r"Li(\d+)E", name))
         ins = [(int(a, 16), op.split(".")[0], rest)
                for a, op, rest in SASS_INS.findall(fn)]
         at = {a: i for i, (a, _op, _rest) in enumerate(ins)}
@@ -190,39 +358,61 @@ def k3_row_loops(sass: str) -> dict:
             tgt = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
             if tgt and int(tgt.group(1), 16) < a:
                 seg = ins[at[int(tgt.group(1), 16)]:i + 1]
-                if len(seg) > len(body) and any(o == "BAR" for _a, o, _r in seg):
+                if len(seg) > len(body) and (
+                        not barrier or any(o == "BAR" for _a, o, _r in seg)):
                     body = seg
-        need(body, f"K3 SASS: no row loop in banded_kernel<{cpt}, {t}>")
-        loops[(cpt, t)] = (len(body), sum(not o.startswith(NON_ALU)
-                                          for _a, o, _rest in body))
+        need(body, f"SASS: no main loop in {kernel}<{targs}>")
+        loops[targs] = (len(body), sum(not o.startswith(NON_ALU)
+                                       for _a, o, _rest in body))
+    need(loops, f"SASS: no instantiation of {kernel} in {path}")
     return loops
 
 
-def k3_sass(details) -> dict:
-    """Prints what K3 executes per DP row and thread, from `cuobjdump
-    -sass` of the library just built, beside the operations per cell
-    that its bound counts (BANDED_OPS_PER_CELL). Returns the row loops
-    by band: {B: (instructions, integer instructions, threads)}."""
+def slope(loops: dict, lo: tuple, hi: tuple, per) -> float:
+    """Integer instructions one more unit of `per` (slots, words) adds to
+    the loop, from two instantiations."""
+    return (loops[hi][1] - loops[lo][1]) / (per(hi) - per(lo))
+
+
+def kernel_sass(details, k3_count: str) -> dict:
+    """Prints what the kernels execute per unit of their recurrence, from
+    `cuobjdump -sass` of the libraries just built, beside the operations
+    their bounds count: K1 per Myers word (column loop, slope over words
+    per query), K2 per cell (row loop, slope over columns per thread),
+    K3 per cell and per thread and row (the interior path alone, from the
+    build `k3_count` with K3_COUNT_INTERIOR; slope over 4 and 8 slots per
+    thread at 256 threads). Returns K3's interior row loops by (slots,
+    threads): integer instructions."""
     from delly_tpu_torch.ops import _build
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", _build._lib_path("gotoh_banded")],
-                          capture_output=True, text=True, check=True).stdout
-    loops = k3_row_loops(sass)
-    need((2, 512) in loops and (4, 512) in loops, "K3 SASS: instantiations")
-    # integer instructions one more slot per thread adds to the row loop
-    per_slot = (loops[(4, 512)][1] - loops[(2, 512)][1]) / 2
-    print("K3 SASS row loop per thread (cuobjdump): " + ", ".join(
-        f"B={c * t} ({c} slots x {t}) {n} instructions, {a} integer"
-        for (c, t), (n, a) in sorted(loops.items())) +
-        f"; one more slot adds {per_slot:g} integer instructions; the bound"
-        f" counts {BANDED_OPS_PER_CELL} operations per cell")
-    details["k3_sass"] = {
-        "row_loop": {f"{c}x{t}": {"instructions": n, "integer": a}
-                     for (c, t), (n, a) in loops.items()},
-        "integer_per_slot": per_slot,
-        "ops_per_cell_counted": BANDED_OPS_PER_CELL}
-    return {c * t: (n, a, t) for (c, t), (n, a) in loops.items()}
+    k1 = sass_loops(_build._lib_path("myers"), "myers_kernel", False)
+    k1_word = slope(k1, (4,), (8,), lambda t: t[0])
+    k2 = sass_loops(_build._lib_path("gotoh"), "gotoh_kernel", True)
+    k2_cell = slope(k2, (2,), (8,), lambda t: t[0])
+    k3 = sass_loops(_build._lib_path("gotoh_banded"), "banded_kernel", True)
+    k3i = sass_loops(k3_count, "banded_kernel", True)
+    k3_cell = slope(k3i, (4, 256), (8, 256), lambda t: t[0])
+    k3_row = k3i[(4, 256)][1] - 4 * k3_cell
+    print(f"K1 SASS: {k1_word:g} integer instructions per Myers word "
+          f"(column loop, W=4 to 8); the bound counts {MYERS_OPS_PER_WORD}")
+    print(f"K2 SASS: {k2_cell:g} integer instructions per cell (row loop, 2 "
+          f"to 8 columns per thread); the bound counts {GOTOH_OPS_PER_CELL}")
+    print("K3 SASS interior row loop per thread: " + ", ".join(
+        f"{c} slots x {t} threads {a} integer" for (c, t), (_n, a)
+        in sorted(k3i.items())) + f"; {k3_cell:g} integer instructions per "
+        f"cell and {k3_row:g} per thread and row at 256 threads; the bound "
+        f"counts {BANDED_OPS_PER_CELL} per cell. Both paths in the row loop:"
+        + ", ".join(f" {c}x{t} {a}" for (c, t), (_n, a) in sorted(k3.items())))
+    details["sass"] = {
+        "k1_column_loop": {str(k): v for k, v in k1.items()},
+        "k1_integer_per_word": k1_word,
+        "k2_row_loop": {str(k): v for k, v in k2.items()},
+        "k2_integer_per_cell": k2_cell,
+        "k3_row_loop_both_paths": {f"{c}x{t}": v
+                                   for (c, t), v in k3.items()},
+        "k3_row_loop_interior": {f"{c}x{t}": v for (c, t), v in k3i.items()},
+        "k3_integer_per_cell": k3_cell, "k3_integer_per_thread_row": k3_row}
+    return {k: a for k, (_n, a) in k3i.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +465,8 @@ def check_myers(dev, rng, details) -> dict:
             ms = cuda_ms(lambda: myers(*args, mode), reps=20)
             plain = cuda_ms(lambda: myers_plain(*args, mode), reps=2)
             words = (ql.astype(np.int64) + 31) // 32
-            ops = float((words * tl).sum()) * MYERS_OPS_PER_WORD
+            ops = float((words * tl).sum() * MYERS_OPS_PER_WORD
+                        + tl.sum() * MYERS_OPS_PER_COLUMN)
             nbytes = q.nbytes + t.nbytes + ql.nbytes + tl.nbytes + 256 + 4 * b
             out = {"ms": ms, "plain_ms": plain, "shapes": f"{b} pairs, "
                    f"{m}x{n} uint8, HW", **bound(nbytes, ops)}
@@ -417,6 +608,7 @@ def banded_vs_plain(dev, fargs, label) -> dict:
             "tb_err": e_tb, "rows": rows, "cells": rows * B,
             "in_bytes": rows + int(nl.long().sum()) + 8 * len(ml),
             "steps": int(lens.long().sum()), "jobs": len(ml),
+            "longest_walk": int(lens.max()),
             "M": s1.shape[1], "B": B}
 
 
@@ -439,8 +631,9 @@ def _banded_jobs(prng, n_jobs, lo, hi, n_one):
 def check_banded(dev, rng, details) -> int:
     """K3/K3-tb against the plain versions at every band in all four
     end-gap configs (M = 256), at every band with M = 16,384, and at
-    m = 32,768; swapped and n = 1 jobs through gotoh_banded_batch
-    against the host corridor. Returns the largest difference (0)."""
+    m = 32,768; swapped and n = 1 jobs, and one call mixing every band,
+    through gotoh_banded_batch against the host corridor. Returns the
+    largest difference (0)."""
     import torch
 
     from delly_tpu_torch.ops.gotoh import DnaScore, to_align
@@ -471,6 +664,7 @@ def check_banded(dev, rng, details) -> int:
     packed = [torch.from_numpy(x).to(dev) for x in pack_jobs(jobs, 32768)]
     r = banded_vs_plain(dev, (*packed, 4096, True, True, sc.match,
                               sc.mismatch, sc.go, sc.ge), "m=32768")
+    err = max(err, r["err"], r["tb_err"])
     print(f"K3/K3-tb m=32768 B=4096: equal (plain {r['plain_ms']:.0f} ms, "
           f"walk {r['tb_plain_ms']:.0f} ms)")
     # the batch entry point on the card: transposed jobs and n = 1
@@ -491,54 +685,92 @@ def check_banded(dev, rng, details) -> int:
              "gotoh_banded_batch on the card != host corridor")
     print("K3/K3-tb gotoh_banded_batch, swapped and n=1 jobs: equal to the "
           "host corridor")
+    # one call, a band per job: every band's launches on their own streams
+    bands = list(BANDS) + [1024]
+    pairs = [(x, _mutate(prng, x)) for x in (_seq(prng, 2500) for _ in bands)]
+    pairs[-1] = pairs[-1][::-1]
+    got = gotoh_banded_batch(pairs, ac=(True, True), sc=sc, band=bands)
+    for (x, y), band, (score, merged) in zip(pairs, bands, got):
+        a1, a2 = to_align(x), to_align(y)
+        if a2.shape[1] > a1.shape[1]:
+            ws, wm = gotoh_banded_host(a2, a1, ac=(True, True), sc=sc,
+                                       band=band)
+            wm = np.concatenate([wm[1:], wm[:1]], axis=0)
+        else:
+            ws, wm = gotoh_banded_host(a1, a2, ac=(True, True), sc=sc,
+                                       band=band)
+        need(score == ws and np.array_equal(merged, wm),
+             f"gotoh_banded_batch with mixed bands != host corridor ({band})")
+    print("K3/K3-tb gotoh_banded_batch, one call of mixed bands: equal to the "
+          "host corridor")
     details["k3_cases"] = [c[0] for c in cases] + [
-        "m=32768 B=4096", "batch: swapped, n=1"]
+        "m=32768 B=4096", "batch: swapped, n=1", "batch: mixed bands"]
     details["k3_check_s"] = time.time() - t0
     return err
 
 
-def measure_banded(dev, launches, err, sass_loops) -> tuple:
+def measure_banded(dev, launches, err, sass_loops, step_ns) -> tuple:
     """The main path's K3/K3-tb numbers from the long-split run's own
     launches (their inputs, recorded during the run): each held against
-    the plain versions, then timed; times, bounds and plain times are
-    sums over the launches. Beside the bound, the time the integer
-    instructions of K3's row loops (`sass_loops`, from k3_sass) would
-    take at the card's int32 rate."""
+    the plain versions; then the run's corridor jobs timed as a whole,
+    all launches at once on their own streams as gotoh_banded_batch runs
+    them (run_concurrently, with the keyword arguments each launch had),
+    and each launch alone. Bounds and plain
+    times are sums over the launches. Beside the bound, the time the
+    integer instructions of K3's interior row loops (`sass_loops`, from
+    kernel_sass) would take at the card's int32 rate, and K3-tb's chain
+    floor: the longest walk's steps x one dependent shared-memory load
+    (`step_ns`, the chase probe's time in this run)."""
     from delly_tpu_torch.ops.gotoh_banded_cuda import (
-        banded_forward, banded_traceback,
+        banded_forward, banded_traceback, run_concurrently,
     )
 
-    ms = tb_ms = 0.0
     sass_ops = 0
     tot = {"plain_ms": 0.0, "tb_plain_ms": 0.0, "rows": 0, "cells": 0,
            "in_bytes": 0, "steps": 0, "jobs": 0}
-    shapes = []
-    for i, fargs in enumerate(launches):
+    shapes, alone, tb_alone, longest = [], [], [], 0
+    outs = []
+    for i, (fargs, kw) in enumerate(launches):
         r = banded_vs_plain(dev, fargs, f"long-split launch {i}")
         err = max(err, r["err"], r["tb_err"])
         for k in tot:
             tot[k] += r[k]
-        _n, alu, threads = sass_loops[r["B"]]
-        sass_ops += r["rows"] * threads * alu
-        best, bits = banded_forward(*fargs)
-        ms += cuda_ms(lambda: banded_forward(*fargs), reps=5)
-        tb_ms += cuda_ms(lambda: banded_traceback(bits, fargs[2], fargs[3]),
-                         reps=5)
+        longest = max(longest, r["longest_walk"])
+        threads = r["B"] // 4           # K3 runs 4 slots per thread
+        sass_ops += r["rows"] * threads * sass_loops[(4, threads)]
+        outs.append(banded_forward(*fargs, **kw))
+        alone.append(cuda_ms(lambda: banded_forward(*fargs, **kw), reps=5))
+        tb_alone.append(cuda_ms(lambda: banded_traceback(
+            outs[-1][1], fargs[2], fargs[3]), reps=5))
         shapes.append(f"{r['jobs']}x(M={r['M']}, B={r['B']})")
     print(f"K3/K3-tb long-split launches ({', '.join(shapes)}): equal")
-    desc = (f"{tot['jobs']} jobs in {len(launches)} launches: "
+    fwd = [lambda f=f, kw=kw: banded_forward(*f, **kw) for f, kw in launches]
+    tb = [lambda f=f, o=o: banded_traceback(o[1], f[2], f[3])
+          for (f, _kw), o in zip(launches, outs)]
+    ms = cuda_ms(lambda: run_concurrently(dev, fwd), reps=5)
+    tb_ms = cuda_ms(lambda: run_concurrently(dev, tb), reps=5)
+    desc = (f"{tot['jobs']} jobs in {len(launches)} launches at once: "
             f"{', '.join(shapes)}; {tot['rows']} DP rows")
     G = tot["jobs"]
     sass_ms = sass_ops / INT32_OPS_PER_S * 1e3
-    print(f"K3 long-split launches: {sass_ops} integer instructions in "
-          f"their row loops, {sass_ms:.4f} ms at the int32 rate")
+    floor_ms = longest * step_ns * 1e-6
+    print(f"K3 long-split jobs: {ms:.4f} ms at once, launches alone "
+          f"{[round(x, 4) for x in alone]} ms; {sass_ops} integer "
+          f"instructions in their interior row loops, {sass_ms:.4f} ms at "
+          f"the int32 rate")
+    print(f"K3-tb long-split jobs: {tb_ms:.4f} ms at once, launches alone "
+          f"{[round(x, 4) for x in tb_alone]} ms; longest walk {longest} "
+          f"steps, chain floor {floor_ms:.4f} ms")
     k3 = {"ms": ms, "plain_ms": tot["plain_ms"], "max_abs_err": err,
-          "shapes": desc, "row_loop_integer_instructions": sass_ops,
+          "shapes": desc, "launch_ms_alone": alone,
+          "row_loop_integer_instructions": sass_ops,
           "row_loop_ms_at_int32_rate": sass_ms,
           **bound(tot["in_bytes"] + tot["cells"] + 4 * G,
                   tot["cells"] * BANDED_OPS_PER_CELL)}
     tb = {"ms": tb_ms, "plain_ms": tot["tb_plain_ms"], "max_abs_err": err,
           "shapes": f"{desc}; {tot['steps']} walk steps",
+          "launch_ms_alone": tb_alone, "longest_walk_steps": longest,
+          "smem_step_ns": step_ns, "chain_floor_ms": floor_ms,
           **bound(2 * tot["steps"] + 12 * G,
                   tot["steps"] * BANDED_TB_OPS_PER_STEP)}
     return k3, tb
@@ -549,11 +781,12 @@ def measure_banded(dev, launches, err, sass_loops) -> tuple:
 # ---------------------------------------------------------------------------
 
 def recorder(record: list):
-    """Stand-in maker that appends each call's arguments to `record`."""
+    """Stand-in maker that appends each call's (arguments, keyword
+    arguments) to `record`."""
     def make(fn):
-        def recorded(*args):
-            record.append(args)
-            return fn(*args)
+        def recorded(*args, **kwargs):
+            record.append((args, kwargs))
+            return fn(*args, **kwargs)
         return recorded
     return make
 
@@ -667,7 +900,7 @@ def vcf_body(path):
 def phase_e2e(work, details):
     from delly_tpu_torch.ops import gotoh_banded_cuda
     from delly_tpu_torch.testing.synth import (
-        make_deep_geno_dataset, make_long_split_dataset,
+        LONG_SPLIT, make_deep_geno_dataset, make_long_split_dataset,
         make_multi_sv_dataset,
     )
 
@@ -723,25 +956,47 @@ def phase_e2e(work, details):
     print(f"long-split: recall {tp}/{nt}, precision {good}/{nc}")
     details["long_split"] = {"tp": tp, "truth": nt, "good": good,
                              "calls": nc, "k3_jobs": sum(
-                                 len(f[0]) for f in k3_launches)}
+                                 len(a[0]) for a, _kw in k3_launches)}
     need(tp == nt == 24 and good == nc, "long-split truth check")
+    return launches, k3_launches, cmds
 
-    # the same commands on the host (the plain versions), one after the
-    # other, each with its stage profile (DELLY_TPU_PROFILE)
+
+def start_cpu_runs(cmds: dict, p) -> list:
+    """Starts the CPU runs (DELLY_TPU_TORCH_DEVICE=cpu, one torch thread
+    each, with their stage profiles): [(label, process, profile, t0,
+    end times)]. They write their VCFs beside the card's."""
+    runs = []
     for label, argv in cmds.items():
         argv = [a.replace("{}", "cpu") if a.endswith(".{}.vcf") else a
                 for a in argv]
-        prof = p(f"profile.{label.replace(' ', '_')}.json")
+        stem = label.replace(" ", "_")
+        prof = p(f"profile.{stem}.json")
         env = dict(os.environ, DELLY_TPU_TORCH_DEVICE="cpu",
-                   DELLY_TPU_PROFILE=prof)
+                   DELLY_TPU_PROFILE=prof, OMP_NUM_THREADS="1")
+        err = open(p(f"stderr.{stem}.txt"), "w")
         t0 = time.time()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [sys.executable, "-m", "delly_tpu_torch.cli", *argv], cwd=REPO,
-            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-            text=True)
-        wall = time.time() - t0
-        need(proc.returncode == 0, f"{label} on cpu exited "
-             f"{proc.returncode}: {proc.stderr[-1500:]}")
+            env=env, stdout=subprocess.DEVNULL, stderr=err)
+        err.close()
+        ends = {}
+        threading.Thread(target=lambda pr=proc, e=ends: e.setdefault(
+            "t", (pr.wait(), time.time())[1]), daemon=True).start()
+        runs.append((label, proc, prof, t0, ends))
+    return runs
+
+
+def finish_cpu_runs(runs: list, p, details) -> None:
+    """Waits for the CPU runs, prints their stage profiles and checks that
+    every card VCF equals its CPU run's apart from ##fileDate."""
+    for label, proc, prof, t0, ends in runs:
+        rc = proc.wait()
+        while "t" not in ends:
+            time.sleep(0.01)
+        wall = ends["t"] - t0
+        with open(p(f"stderr.{label.replace(' ', '_')}.txt")) as fh:
+            err = fh.read()
+        need(rc == 0, f"{label} on cpu exited {rc}: {err[-1500:]}")
         with open(prof) as fh:
             stages = json.load(fh)
         print(f"{label} on cpu: process wall {wall:.3f}s, "
@@ -754,7 +1009,6 @@ def phase_e2e(work, details):
         a, b = vcf_body(p(f"{stem}.cuda.vcf")), vcf_body(p(f"{stem}.cpu.vcf"))
         need(a == b, f"{stem}: card and cpu VCFs differ")
         print(f"{stem}: card VCF == cpu VCF ({len(a)} lines)")
-    return launches, k3_launches
 
 
 def phase_host_dp(work, details) -> None:
@@ -820,17 +1074,29 @@ def main() -> int:
     os.makedirs(work)
     os.environ["DELLY_TPU_TORCH_DEVICE"] = "cuda"
     t0 = time.time()
+    cpu_runs = []
     try:
-        phase_build(details)
-        sass_loops = k3_sass(details)
+        k3_count, probe_lib = phase_build(details)
+        sass_loops = kernel_sass(details, k3_count)
+        step_ns = phase_probes(dev, probe_lib, details)
         rng = np.random.default_rng(SEED)
         k1 = check_myers(dev, rng, details)
         k2, tb = check_gotoh(dev, rng, details)
-        err3 = check_banded(dev, rng, details)
-        launches, k3_launches = phase_e2e(work, details)
+        launches, k3_launches, cmds = phase_e2e(work, details)
         phase_host_dp(work, details)
-        k3, k3tb = measure_banded(dev, k3_launches, err3, sass_loops)
+        # the same commands on the host (the plain versions), all at once
+        # in the background while the K3/K3-tb checks and timings run
+        p = lambda name: os.path.join(work, name)  # noqa: E731
+        cpu_runs = start_cpu_runs(cmds, p)
+        err3 = check_banded(dev, rng, details)
+        k3, k3tb = measure_banded(dev, k3_launches, err3, sass_loops,
+                                  step_ns)
+        finish_cpu_runs(cpu_runs, p, details)
     finally:
+        for run in cpu_runs:
+            if run[1].poll() is None:
+                run[1].kill()
+                run[1].wait()
         shutil.rmtree(work, ignore_errors=True)
     details["total_s"] = time.time() - t0
 
@@ -859,7 +1125,9 @@ def main() -> int:
             "bytes_ms": meas["bytes_ms"], "bound_ops": meas["ops"],
             "ops_ms": meas["ops_ms"], "library_ms": None,
             "shapes": meas["shapes"],
-            **{k: v for k, v in meas.items() if k.startswith("row_loop")}})
+            **{k: v for k, v in meas.items() if k.startswith(
+                ("row_loop", "launch_ms", "longest", "smem_step",
+                 "chain_floor"))}})
     details["kernels"] = kernels
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:

@@ -8,15 +8,18 @@ keeps the contract of the JAX package's ``gotoh_banded_batch``
 (:420-546): jobs with n > m are transposed, multi-row or empty jobs take
 the full host ``gotoh``, jobs above ``max_m`` or with letters outside
 ACGTN- take the host corridor ``gotoh_banded_host`` (all three count as
-``host_routes``), the rest are bucketed by (M, end-gap config) and
+``host_routes``), the rest are bucketed by (band, M, end-gap config) and
 ``create_alignment_codes`` runs on the host. Results equal
-``gotoh_banded_host`` per job.
+``gotoh_banded_host`` per job. It takes one band for all jobs or one
+per job, and runs every bucket's K3 and K3-tb on its own CUDA stream,
+joined before one copy back, so a round's bands share the card.
 
 What is packed for the card: the two sequences as bytes and the
 lengths. The kernel compares s1[r-1] with s2[clip(col-1, 0, n-1)] itself
 (the TPU path packed (m, B) equality windows on the host), writes one
 byte of direction bits per (row, slot), and solves the in-row chain
-with a block-wide max-plus scan.
+with a block-wide max-plus scan. Both kernels step off(r) with a
+quotient and remainder (``corridor_table_stepped`` is their twin).
 
 Bounds on the H100: the forward pass writes one byte per (row, slot)
 and its recurrence has 39 integer operations per cell; the walk is a
@@ -66,6 +69,44 @@ def corridor_table(mlen, nlen, M: int, B: int):
     n = nlen.to(torch.int64)[:, None]
     raw = (r * n // m - B // 2).clamp(min=0)
     return raw - raw % QUANT
+
+
+def corridor_table_stepped(mlen, nlen, M: int, B: int,
+                           descending: bool = False) -> np.ndarray:
+    """corridor_table as K3 and K3-tb compute it, with no division (numpy
+    twin of their arithmetic): the quotient q and remainder of r * n / m
+    step with r (n <= m, so one carry or borrow at most), and off(r) is
+    q - B/2 rounded down to a multiple of 128, or 0. Ascending from row 0
+    as K3 steps, or, with `descending`, from row m down to 0 as K3-tb
+    steps (rows above m stay 0). (G, M + 1) int64."""
+    m = np.asarray(mlen, dtype=np.int64)
+    n = np.asarray(nlen, dtype=np.int64)
+    out = np.zeros((len(m), M + 1), dtype=np.int64)
+
+    def off(q):
+        raw = q - B // 2
+        return np.where(raw > 0, raw & ~(QUANT - 1), 0)
+
+    if descending:
+        q, rem, row = n.copy(), np.zeros_like(m), m.copy()
+        idx = np.arange(len(m))
+        while len(row) and row.max() >= 0:
+            live = row >= 0
+            out[idx[live], row[live]] = off(q)[live]
+            rem -= n
+            borrow = rem < 0
+            rem += np.where(borrow, m, 0)
+            q -= borrow
+            row -= 1
+        return out
+    q, rem = np.zeros_like(m), np.zeros_like(m)
+    for r in range(1, M + 1):
+        rem += n
+        carry = rem >= m
+        rem -= np.where(carry, m, 0)
+        q += carry
+        out[:, r] = off(q)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +256,8 @@ def _lib(name: str):
     lib = _build.load(name)
     if name == "gotoh_banded" and lib.gotoh_banded_launch.argtypes is None:
         lib.gotoh_banded_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                            _I, _I, _I, _I, _I, _P, _P, _P]
+                                            _I, _I, _I, _I, _I, _P, _P, _I,
+                                            _P]
         lib.gotoh_banded_launch.restype = _I
     if (name == "gotoh_banded_tb"
             and lib.gotoh_banded_tb_launch.argtypes is None):
@@ -255,9 +297,12 @@ def _check_mb(name: str, M: int, B: int) -> None:
 
 
 def banded_forward(s1, s2, mlen, nlen, B: int, hfree: bool, vfree: bool,
-                   match: int, mismatch: int, go: int, ge: int):
+                   match: int, mismatch: int, go: int, ge: int,
+                   spread: bool = False):
     """K3: (best (G,) int32, bits (G, M, B) uint8) for s1, s2 (G, M) uint8
-    and mlen, nlen (G,) int32 with 1 <= nlen <= mlen <= M."""
+    and mlen, nlen (G,) int32 with 1 <= nlen <= mlen <= M. `spread`
+    keeps its blocks on SMs of their own (for launches that together hold
+    fewer jobs than the card has SMs); it does not change the result."""
     G, M = s1.shape
     _check_mb("gotoh_banded", M, B)
     _check("gotoh_banded", s1.device, (
@@ -275,8 +320,8 @@ def banded_forward(s1, s2, mlen, nlen, B: int, hfree: bool, vfree: bool,
         return best, bits
     rc = _lib("gotoh_banded").gotoh_banded_launch(
         s1.data_ptr(), s2.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, M,
-        B, int(hfree), int(vfree), int(match), int(mismatch), int(go),
-        int(ge), best.data_ptr(), bits.data_ptr(),
+        B, int(hfree), int(vfree), int(match), int(mismatch), int(go), int(ge),
+        best.data_ptr(), bits.data_ptr(), int(spread),
         _build.stream_ptr(s1.device))
     _build.check(rc, "gotoh_banded")
     dispatch.count("gotoh_banded")
@@ -329,15 +374,47 @@ def pack_jobs(jobs: list, M: int):
     return s1, s2, ml, nl
 
 
+_side_streams: dict = {}
+
+
+def run_concurrently(dev, fns: list) -> list:
+    """[fn() for fn in fns], each called with a CUDA stream of its own
+    current, after the current stream's queued work; the current stream
+    then waits for all of them. On the CPU, one after the other."""
+    if dev.type != "cuda":
+        return [fn() for fn in fns]
+    main = torch.cuda.current_stream(dev)
+    pool = _side_streams.setdefault(dev, [])
+    while len(pool) < len(fns):
+        pool.append(torch.cuda.Stream(dev))
+    outs = []
+    for fn, st in zip(fns, pool):
+        st.wait_stream(main)
+        with torch.cuda.stream(st):
+            out = fn()
+        for x in out if isinstance(out, tuple) else (out,):
+            if isinstance(x, torch.Tensor):
+                x.record_stream(main)
+        outs.append(out)
+    for st in pool[:len(fns)]:
+        main.wait_stream(st)
+    return outs
+
+
 def gotoh_banded_batch(jobs, ac=(False, False), sc: DnaScore | None = None,
-                       band: int = 512, max_m: int = MAX_M):
+                       band=512, max_m: int = MAX_M):
     """Batched corridor Gotoh on the run's device: [(score, merged)] with
     the values of gotoh_banded_host per job (transposed when n > m, its
-    trace codes and merged rows swapped back). Jobs the kernels do not
-    serve take a host DP and count as host routes."""
+    trace codes and merged rows swapped back). `band` is one band for
+    every job or a sequence of one per job. Jobs the kernels do not
+    serve take a host DP and count as host routes. Each (band, M, end-gap
+    config) bucket, split at TILE_BYTES, is one K3 and one K3-tb launch;
+    on the card all buckets' K3 launches run at once on their own
+    streams, then their K3-tb launches, before one copy back."""
     from delly_tpu_torch.utils import torchenv
 
     sc = sc or DnaScore()
+    bands = [band] * len(jobs) if isinstance(band, int) else list(band)
     prep = []
     for a1, a2 in jobs:
         a1, a2 = to_align(a1), to_align(a2)
@@ -359,30 +436,47 @@ def gotoh_banded_batch(jobs, ac=(False, False), sc: DnaScore | None = None,
                 or not _ALLOWED.issuperset(a2.tobytes())):
             dispatch.count("host_routes")
             best, merged = gotoh_banded_host(a1, a2, ac=eac, sc=sc,
-                                             band=band)
+                                             band=bands[idx])
             results[idx] = _unswap(best, merged, a1, swap)
             continue
-        key = (_bucket_m(m), bool(eac[0]), bool(eac[1]))
+        key = (bands[idx], _bucket_m(m), bool(eac[0]), bool(eac[1]))
         by_bucket.setdefault(key, []).append(idx)
+    parts = []
+    for (B, M, hfree, vfree), idxs in sorted(by_bucket.items()):
+        step = max(1, TILE_BYTES // (M * B))
+        parts += [(B, hfree, vfree, idxs[lo:lo + step])
+                  for lo in range(0, len(idxs), step)]
+    if not parts:
+        return results
     dev = torchenv.device()
-    for (M, hfree, vfree), idxs in sorted(by_bucket.items()):
-        step = max(1, TILE_BYTES // (M * band))
-        for lo in range(0, len(idxs), step):
-            part = idxs[lo:lo + step]
-            packed = pack_jobs([prep[i][:2] for i in part], M)
-            s1, s2, ml, nl = (torch.from_numpy(x).to(dev) for x in packed)
-            best, bits = banded_forward(s1, s2, ml, nl, band, hfree, vfree,
-                                        sc.match, sc.mismatch, sc.go, sc.ge)
-            codes, lens = banded_traceback(bits, ml, nl)
-            del bits
-            best = best.cpu().numpy()
-            codes = codes.cpu().numpy()
-            lens = lens.cpu().numpy()
-            for slot, idx in enumerate(part):
-                a1, a2, swap = prep[idx]
-                fwd = codes[slot, :lens[slot]][::-1].astype(np.int64)
-                merged = create_alignment_codes(fwd, a1, a2)
-                results[idx] = _unswap(int(best[slot]), merged, a1, swap)
+    # a round of fewer jobs than SMs: one job per SM, none sharing
+    spread = dev.type == "cuda" and sum(len(p[3]) for p in parts) <= (
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+
+    def forward(B, hfree, vfree, part):
+        M = _bucket_m(max(prep[i][0].shape[1] for i in part))
+        packed = pack_jobs([prep[i][:2] for i in part], M)
+        s1, s2, ml, nl = (torch.from_numpy(x).to(dev) for x in packed)
+        best, bits = banded_forward(s1, s2, ml, nl, B, hfree, vfree,
+                                    sc.match, sc.mismatch, sc.go, sc.ge,
+                                    spread=spread)
+        return best, bits, ml, nl
+
+    fwd = run_concurrently(dev, [lambda p=p: forward(*p) for p in parts])
+    # the walks start once every forward pass has ended (their wrapper's
+    # length check reads the lengths back)
+    walks = run_concurrently(dev, [lambda f=f: banded_traceback(*f[1:])
+                                   for f in fwd])
+    for (_B, _hf, _vf, part), (best, *_r), (codes, lens) in zip(parts, fwd,
+                                                                walks):
+        best = best.cpu().numpy()
+        codes = codes.cpu().numpy()
+        lens = lens.cpu().numpy()
+        for slot, idx in enumerate(part):
+            a1, a2, swap = prep[idx]
+            fwd_codes = codes[slot, :lens[slot]][::-1].astype(np.int64)
+            merged = create_alignment_codes(fwd_codes, a1, a2)
+            results[idx] = _unswap(int(best[slot]), merged, a1, swap)
     return results
 
 

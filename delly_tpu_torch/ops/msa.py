@@ -149,30 +149,31 @@ def _corridor_band(a1, a2):
 
 def _banded_or_full(pairs: list, ac, sc) -> list:
     """Long-context sequence merges: corridor Gotoh with a band sized
-    from the Myers edit distance, one gotoh_banded_batch call per band
-    (it buckets by M and end-gap config), validated by checking the
-    traceback never rides an interior corridor edge; any doubt falls
-    back to the exact full DP on the host, counted as a host route."""
+    from the Myers edit distance, all of a round's pairs in one
+    gotoh_banded_batch call (its buckets by band, M and end-gap config
+    run on the card at once), validated by checking the traceback never
+    rides an interior corridor edge; any doubt falls back to the exact
+    full DP on the host, counted as a host route."""
     from delly_tpu_torch.ops.gotoh_banded_cuda import gotoh_banded_batch
     out = [None] * len(pairs)
-    by_band = {}
+    ks, bands = [], []
     for k, (a1, a2) in enumerate(pairs):
         band = _corridor_band(a1, a2)
         if band is None:
             dispatch.count("host_routes")
             out[k] = gotoh(a1, a2, ac=ac, sc=sc)
         else:
-            by_band.setdefault(band, []).append(k)
-    for band, ks in sorted(by_band.items()):
-        res = gotoh_banded_batch([pairs[k] for k in ks], ac=ac, sc=sc,
-                                 band=band)
-        for k, (best, merged) in zip(ks, res):
-            a1, a2 = pairs[k]
-            if _trace_touches_edge(merged, a1.shape[1], a2.shape[1], band):
-                dispatch.count("host_routes")
-                out[k] = gotoh(a1, a2, ac=ac, sc=sc)
-            else:
-                out[k] = (best, merged)
+            ks.append(k)
+            bands.append(band)
+    res = gotoh_banded_batch([pairs[k] for k in ks], ac=ac, sc=sc,
+                             band=bands) if ks else []
+    for k, band, (best, merged) in zip(ks, bands, res):
+        a1, a2 = pairs[k]
+        if _trace_touches_edge(merged, a1.shape[1], a2.shape[1], band):
+            dispatch.count("host_routes")
+            out[k] = gotoh(a1, a2, ac=ac, sc=sc)
+        else:
+            out[k] = (best, merged)
     return out
 
 

@@ -295,6 +295,13 @@ def make_multi_sv_dataset(tmpdir, n_contigs=4, contig_len=400_000,
     return bam, fa, truth
 
 
+# the long-split run of chip_smoke.py: 24 het 5 kb DELs, each seen by
+# two ~12 kb split reads
+LONG_SPLIT = dict(n_contigs=4, contig_len=1_000_000, dels_per_contig=6,
+                  reads_per_del=2, read_len=12_000, jitter=200,
+                  pairs_per_contig=20_000)
+
+
 def make_long_split_dataset(tmpdir, n_contigs=1, contig_len=400_000,
                             dels_per_contig=1, reads_per_del=2,
                             read_len=12_000, jitter=200,

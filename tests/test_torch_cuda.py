@@ -145,6 +145,118 @@ def test_gotoh_banded_kernels_match_plain(card, ac, band, n_jobs, lo, hi):
         assert torch.equal(codes[g, :k].cpu(), want_codes[g, :k])
 
 
+def _assert_banded(card, s1, s2, ml, nl, args):
+    """K3 and K3-tb on the card bit-equal to the plain versions: best,
+    the bits of rows 1..m, lens and the codes."""
+    want_best, want_bits = gotoh_banded_cuda.banded_forward_plain(
+        s1, s2, ml, nl, *args)
+    want_codes, want_lens = gotoh_banded_cuda.banded_traceback_plain(
+        want_bits, ml, nl)
+    dev = [x.to(card) for x in (s1, s2, ml, nl)]
+    best, bits = gotoh_banded_cuda.banded_forward(*dev, *args)
+    codes, lens = gotoh_banded_cuda.banded_traceback(bits, dev[2], dev[3])
+    torch.cuda.synchronize()
+    assert torch.equal(best.cpu(), want_best)
+    assert torch.equal(lens.cpu(), want_lens)
+    for g in range(len(ml)):
+        m, k = int(ml[g]), int(lens[g])
+        assert torch.equal(bits[g, :m].cpu(), want_bits[g, :m])
+        assert torch.equal(codes[g, :k].cpu(), want_codes[g, :k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [512, 2048])
+def test_gotoh_banded_more_jobs_than_sms(card, band):
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    _assert_banded(card, *_banded_case(band, sms + 21, 150, 256),
+                   (band, True, True, 5, -4, -10, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", gotoh_banded_cuda.BANDS)
+def test_gotoh_banded_n_one(card, band):
+    """n = 1 against m of 1, a few hundred and a few thousand."""
+    rng = random.Random(band)
+    jobs = [(to_align(_rand_seq(rng, m, m)), to_align("ACGT"[m % 4]))
+            for m in (1, 300, 4100)]
+    packed = gotoh_banded_cuda.pack_jobs(jobs, 8192)
+    for ac in ACS:
+        _assert_banded(card, *(torch.from_numpy(x) for x in packed),
+                       (band, *ac, 5, -4, -10, -1))
+
+
+@pytest.mark.cuda
+def test_gotoh_banded_m32768(card):
+    """m = 32,768 at band 4,096, and n = 1 at the same M."""
+    rng = random.Random(32768)
+    base = _rand_seq(rng, 32768, 32768)
+    jobs = [(to_align(base), to_align(_mutate(rng, base)[:32768])),
+            (to_align(base), to_align("G"))]
+    packed = gotoh_banded_cuda.pack_jobs(jobs, 32768)
+    _assert_banded(card, *(torch.from_numpy(x) for x in packed),
+                   (4096, True, True, 5, -4, -10, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [2048, 4096])
+def test_gotoh_banded_long_gaps(card, band):
+    """Walks with vertical gaps of 600 rows and horizontal gaps of 400
+    columns, across many of K3-tb's shared-memory windows."""
+    rng = random.Random(band + 1)
+    jobs = []
+    for cut, ins in ((1000, 1600), (2200, 700)):
+        base = _rand_seq(rng, 3000, 3000)
+        other = (base[:cut] + base[cut + 600:ins] + _rand_seq(rng, 400, 400)
+                 + base[ins:]) if ins > cut else (
+            base[:ins] + _rand_seq(rng, 400, 400) + base[ins:cut]
+            + base[cut + 600:])
+        jobs.append((to_align(base), to_align(other)))
+    packed = gotoh_banded_cuda.pack_jobs(jobs, 4096)
+    for ac in ACS:
+        _assert_banded(card, *(torch.from_numpy(x) for x in packed),
+                       (band, *ac, 5, -4, -10, -1))
+
+
+@pytest.mark.cuda
+def test_gotoh_banded_batch_mixes_bands_on_card(card, monkeypatch):
+    """One gotoh_banded_batch call with a band per job (three bands, a
+    swapped job): one K3 and one K3-tb launch per band, each job equal
+    to the host corridor at its band."""
+    from delly_tpu_torch.ops.gotoh_banded import gotoh_banded_host
+    from delly_tpu_torch.utils import torchenv
+
+    rng = random.Random(17)
+    jobs, bands = [], []
+    for k, band in enumerate((512, 1024, 2048, 1024, 512)):
+        base = _rand_seq(rng, 1500, 2500)
+        other = _mutate(rng, base)
+        jobs.append((other, base) if k == 3 else (base, other))
+        bands.append(band)
+    monkeypatch.setenv(torchenv.ENV, "cuda")
+    torchenv.reset()
+    try:
+        dispatch.reset()
+        got = gotoh_banded_cuda.gotoh_banded_batch(jobs, ac=(True, True),
+                                                   band=bands)
+    finally:
+        torchenv.reset()
+    counts = dispatch.snapshot()
+    buckets = {(band, gotoh_banded_cuda._bucket_m(max(len(x), len(y))))
+               for (x, y), band in zip(jobs, bands)}
+    assert counts["host_routes"] == 0
+    assert counts["gotoh_banded"] == counts["gotoh_banded_tb"] == len(
+        buckets)
+    for (x, y), band, (s, mg) in zip(jobs, bands, got):
+        a1, a2 = to_align(x), to_align(y)
+        if a2.shape[1] > a1.shape[1]:
+            hs, hm = gotoh_banded_host(a2, a1, ac=(True, True), band=band)
+            hm = np.concatenate([hm[1:], hm[:1]], axis=0)
+        else:
+            hs, hm = gotoh_banded_host(a1, a2, ac=(True, True), band=band)
+        assert s == hs
+        np.testing.assert_array_equal(mg, hm)
+
+
 @pytest.mark.cuda
 def test_gotoh_banded_batch_on_card_matches_host(card, monkeypatch):
     """gotoh_banded_batch on the card, swapped jobs and n = 1 included,

@@ -164,6 +164,52 @@ def test_corridor_table_matches_offsets():
                                           corridor_offsets(m, n, B))
 
 
+@pytest.mark.parametrize("B", gb.BANDS)
+def test_stepped_offsets_match_table(B):
+    """The quotient/remainder stepping of K3 (ascending) and K3-tb
+    (descending) gives corridor_table's off(r): every n <= m for all
+    m <= 512, and seeded random (m, n) up to 32,768."""
+    for lo in range(1, 513, 32):
+        mn = [(m, n) for m in range(lo, lo + 32) for n in range(1, m + 1)]
+        ml, nl = (np.array(x) for x in zip(*mn))
+        M = int(ml.max())
+        want = gb.corridor_table(torch.from_numpy(ml), torch.from_numpy(nl),
+                                 M, B).numpy()
+        np.testing.assert_array_equal(gb.corridor_table_stepped(ml, nl, M, B),
+                                      want)
+        down = gb.corridor_table_stepped(ml, nl, M, B, descending=True)
+        rows = np.arange(M + 1)[None, :] <= ml[:, None]
+        np.testing.assert_array_equal(np.where(rows, down, 0),
+                                      np.where(rows, want, 0))
+    rng = np.random.default_rng(B)
+    ml = rng.integers(1, 32769, size=48)
+    nl = np.array([int(rng.integers(1, m + 1)) for m in ml])
+    ml[:2], nl[:2] = 32768, (32768, 1)
+    want = gb.corridor_table(torch.from_numpy(ml), torch.from_numpy(nl),
+                             32768, B).numpy()
+    np.testing.assert_array_equal(gb.corridor_table_stepped(ml, nl, 32768, B),
+                                  want)
+    down = gb.corridor_table_stepped(ml, nl, 32768, B, descending=True)
+    rows = np.arange(32769)[None, :] <= ml[:, None]
+    np.testing.assert_array_equal(np.where(rows, down, 0),
+                                  np.where(rows, want, 0))
+
+
+def test_batch_mixes_bands(torch_cpu):
+    """One call with a band per job: jobs of three bands, swapped ones
+    among them, each equal to the host corridor at its own band."""
+    jobs = _jobs(93, 300, 900) + _jobs(95, 300, 900)
+    bands = [512, 1024, 2048, 1024, 512, 2048]
+    dispatch.reset()
+    got = gb.gotoh_banded_batch(jobs, ac=(True, True), band=bands)
+    assert dispatch.snapshot()["host_routes"] == 0
+    assert any(a2.shape[1] > a1.shape[1] for a1, a2 in jobs)
+    for (a1, a2), band, (gs, gm) in zip(jobs, bands, got):
+        ws, wm = _host(a1, a2, (True, True), band)
+        assert gs == ws
+        np.testing.assert_array_equal(gm, wm)
+
+
 def test_gates_take_host_routes(torch_cpu):
     """Multi-row and empty jobs take the full Gotoh; jobs above max_m
     and exotic letters the host corridor; each counts as a host route,

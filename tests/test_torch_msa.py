@@ -105,3 +105,35 @@ def test_long_pairs_take_host_corridor(torch_cpu, monkeypatch, distant,
     for (gs, gm), (ws, wm) in zip(got, want):
         assert gs == ws
         np.testing.assert_array_equal(gm, wm)
+
+
+def test_long_round_mixes_bands(torch_cpu, monkeypatch):
+    """One merge round whose long pairs need three corridor widths, one
+    given shorter-first (swapped) and one too distant for any corridor:
+    the port's single batched call equals the JAX package's per-pair
+    _banded_or_full pair for pair, with one host route (the distant
+    pair)."""
+    monkeypatch.setattr(tmsa, "_BANDED_MIN_DIM", 300)
+    rng = random.Random(12)
+    as_row = lambda s: np.frombuffer(s.encode(), np.uint8)[None].copy()  # noqa: E731
+    pairs = []
+    for lo, rounds in ((900, 0), (1800, 1), (2600, 2), (1900, 1)):
+        base = _rand_seq(rng, lo, lo + 50)
+        other = base
+        for _ in range(rounds + 1):
+            other = _mutate(rng, other)
+        pairs.append((as_row(base), as_row(other)))
+    pairs[3] = pairs[3][::-1]                        # shorter first
+    base = _rand_seq(rng, 900, 950)
+    pairs.append((as_row(base), as_row(base[:100] + _rand_seq(rng, 2100, 2100)
+                                        + base[100:])))
+    bands = [tmsa._corridor_band(*p) for p in pairs]
+    assert bands[-1] is None and len(set(bands[:-1])) == 3
+    assert pairs[3][1].shape[1] > pairs[3][0].shape[1]
+    dispatch.reset()
+    got = tmsa._banded_or_full(pairs, (True, True), tmsa.DnaScore())
+    assert dispatch.snapshot()["host_routes"] == 1
+    for (x, y), (gs, gm) in zip(pairs, got):
+        ws, wm = jmsa._banded_or_full(x, y, (True, True), jmsa.DnaScore())
+        assert gs == ws
+        np.testing.assert_array_equal(gm, wm)

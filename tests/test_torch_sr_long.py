@@ -28,9 +28,9 @@ PORT_DRIVER = (
     "from delly_tpu_torch.parallel import dispatch\n"
     "jobs = []\n"
     "forward = g.banded_forward\n"
-    "def spy(s1, *args):\n"
+    "def spy(s1, *args, **kwargs):\n"
     "    jobs.append(s1.shape[0])\n"
-    "    return forward(s1, *args)\n"
+    "    return forward(s1, *args, **kwargs)\n"
     "g.banded_forward = spy\n"
     "from delly_tpu_torch.cli import main\n"
     "rc = main(sys.argv[1:])\n"
