@@ -19,8 +19,10 @@
    cluster would add per DP row).
 2. Holds K1 and K2/K2-tb against their plain PyTorch versions on the
    same inputs, made from numpy.random.default_rng(seed), at the shapes
-   of the sr main path and beyond. Tolerance: exact equality (integer
-   and byte outputs). Times kernel and plain version with CUDA events.
+   of the sr main path and beyond (K2 at every K bucket in all four
+   end-gap configs). Tolerance: exact equality (integer and byte
+   outputs). Times kernel and plain version with CUDA events, and K2 at
+   each bucket.
 3. Generates the svmix, deepgeno and long-split datasets with the port's
    copy of the generators and runs `sr` on each, and `sr -v` on
    deepgeno, through the CLI entry point on the card, with the launch
@@ -378,7 +380,8 @@ def kernel_sass(details, k3_count: str) -> dict:
     """Prints what the kernels execute per unit of their recurrence, from
     `cuobjdump -sass` of the libraries just built, beside the operations
     their bounds count: K1 per Myers word (column loop, slope over words
-    per query), K2 per cell (row loop, slope over columns per thread),
+    per query), K2 per cell and per lane and row (row loop, slope over
+    columns per lane between the warp-per-merge instantiations),
     K3 per cell and per thread and row (the interior path alone, from the
     build `k3_count` with K3_COUNT_INTERIOR; slope over 4 and 8 slots per
     thread at 256 threads). Returns K3's interior row loops by (slots,
@@ -387,16 +390,22 @@ def kernel_sass(details, k3_count: str) -> dict:
 
     k1 = sass_loops(_build._lib_path("myers"), "myers_kernel", False)
     k1_word = slope(k1, (4,), (8,), lambda t: t[0])
-    k2 = sass_loops(_build._lib_path("gotoh"), "gotoh_kernel", True)
-    k2_cell = slope(k2, (2,), (8,), lambda t: t[0])
+    k2 = sass_loops(_build._lib_path("gotoh"), "gotoh_kernel", False)
+    k2w = sorted(k for k in k2 if k[1] == 1)    # one warp per merge
+    k2_cell = slope(k2, k2w[0], k2w[-1], lambda t: t[0])
+    k2_row = k2[k2w[0]][1] - k2w[0][0] * k2_cell
     k3 = sass_loops(_build._lib_path("gotoh_banded"), "banded_kernel", True)
     k3i = sass_loops(k3_count, "banded_kernel", True)
     k3_cell = slope(k3i, (4, 256), (8, 256), lambda t: t[0])
     k3_row = k3i[(4, 256)][1] - 4 * k3_cell
     print(f"K1 SASS: {k1_word:g} integer instructions per Myers word "
           f"(column loop, W=4 to 8); the bound counts {MYERS_OPS_PER_WORD}")
-    print(f"K2 SASS: {k2_cell:g} integer instructions per cell (row loop, 2 "
-          f"to 8 columns per thread); the bound counts {GOTOH_OPS_PER_CELL}")
+    print(f"K2 SASS: {k2_cell:g} integer instructions per cell and "
+          f"{k2_row:g} per lane and row (row loop of the warp-per-merge "
+          f"layout, {k2w[0][0]} to {k2w[-1][0]} columns per lane); the bound "
+          f"counts {GOTOH_OPS_PER_CELL}. Row loops, (columns per lane, warps "
+          f"per merge): " + ", ".join(f"{k} {a}" for k, (_n, a)
+                                      in sorted(k2.items())))
     print("K3 SASS interior row loop per thread: " + ", ".join(
         f"{c} slots x {t} threads {a} integer" for (c, t), (_n, a)
         in sorted(k3i.items())) + f"; {k3_cell:g} integer instructions per "
@@ -407,7 +416,7 @@ def kernel_sass(details, k3_count: str) -> dict:
         "k1_column_loop": {str(k): v for k, v in k1.items()},
         "k1_integer_per_word": k1_word,
         "k2_row_loop": {str(k): v for k, v in k2.items()},
-        "k2_integer_per_cell": k2_cell,
+        "k2_integer_per_cell": k2_cell, "k2_integer_per_lane_row": k2_row,
         "k3_row_loop_both_paths": {f"{c}x{t}": v
                                    for (c, t), v in k3.items()},
         "k3_row_loop_interior": {f"{c}x{t}": v for (c, t), v in k3i.items()},
@@ -507,6 +516,9 @@ def _gotoh_jobs(rng, n_jobs, lo, hi, multi_frac):
 
 
 def check_gotoh(dev, rng, details):
+    """K2/K2-tb against the plain versions at the main path's shape and
+    at every K bucket in all four end-gap configs; times the main shape
+    (the kernels line) and each bucket."""
     import torch
 
     from delly_tpu_torch.ops.gotoh import DnaScore
@@ -517,46 +529,57 @@ def check_gotoh(dev, rng, details):
 
     sc = DnaScore()
     acs = [(True, True), (False, False), (True, False), (False, True)]
-    cases = [("main: MSA merges K=128", 1635, 70, 118, 0.5, [acs[0]])]
-    cases += [(f"K=512 ac={ac}", 24, 300, 470, 0.3, [ac]) for ac in acs]
-    cases += [(f"K=4096 ac={ac}", 2, 2100, 4000, 0.0, [ac]) for ac in acs]
-    k2, tb = {}, {}
+    # (label, K, merges, lengths lo...hi, share of multi-row profiles,
+    # end-gap configs)
+    cases = [("main: MSA merges", 128, 1635, 70, 118, 0.5, acs[:1])]
+    cases += [("bucket", K, n, lo, hi, multi, acs)
+              for K, n, lo, hi, multi in (
+                  (128, 64, 70, 118, 0.5), (256, 48, 140, 230, 0.3),
+                  (512, 24, 300, 470, 0.3), (1024, 8, 560, 940, 0.3),
+                  (2048, 4, 1100, 1900, 0.3), (4096, 2, 2100, 4000, 0.0))]
+    k2, tb, buckets = {}, {}, {}
     err2 = errtb = 0
-    for label, n_jobs, lo, hi, multi, (ac,) in cases:
+    for label, K, n_jobs, lo, hi, multi, ac_list in cases:
         jobs = _gotoh_jobs(rng, n_jobs, lo, hi, multi)
-        K = _bucket_k(max(max(a.shape[1], b.shape[1]) for a, b in jobs))
+        need(_bucket_k(max(max(a.shape[1], b.shape[1]) for a, b in jobs))
+             == K, f"K2 {label}: jobs outside bucket {K}")
         packed = [torch.from_numpy(x).to(dev)
                   for x in pack_bucket(jobs, K, sc)]
         ml, nl = packed[3], packed[4]
-        fargs = (*packed, ac[0], ac[1], sc.go, sc.ge)
-        best, bits = gotoh_forward(*fargs)
-        pbest, pbits = gotoh_forward_plain(*fargs)
-        codes, lens = gotoh_traceback(bits, ml, nl)
-        pcodes, plens = gotoh_traceback_plain(pbits, ml, nl)
-        torch.cuda.synchronize()
         rows = torch.arange(K, device=dev)
         cell = ((rows[None, :, None] < ml[:, None, None])
                 & (rows[None, None, :] < nl[:, None, None]))
-        e_best = int((best.long() - pbest.long()).abs().max())
-        e_bits = int(torch.where(cell, bits.int() - pbits.int(), 0)
-                     .abs().max())
-        need(e_best == 0 and e_bits == 0,
-             f"K2 != plain on {label} (best {e_best}, bits {e_bits})")
-        slot = torch.arange(2 * K, device=dev)[None, :] < lens[:, None]
-        e_tb = int(torch.where(slot, codes.int() - pcodes.int(), 0)
-                   .abs().max())
-        need(torch.equal(lens, plens) and e_tb == 0,
-             f"K2-tb != plain on {label}")
-        err2 = max(err2, e_best, e_bits)
-        errtb = max(errtb, e_tb)
-        print(f"K2/K2-tb {label}: {n_jobs} merges, K={K}: equal")
+        for ac in ac_list:
+            fargs = (*packed, ac[0], ac[1], sc.go, sc.ge)
+            best, bits = gotoh_forward(*fargs)
+            pbest, pbits = gotoh_forward_plain(*fargs)
+            codes, lens = gotoh_traceback(bits, ml, nl)
+            pcodes, plens = gotoh_traceback_plain(pbits, ml, nl)
+            torch.cuda.synchronize()
+            e_best = int((best.long() - pbest.long()).abs().max())
+            e_bits = int(torch.where(cell, bits.int() - pbits.int(), 0)
+                         .abs().max())
+            need(e_best == 0 and e_bits == 0,
+                 f"K2 != plain on {label} K={K} ac={ac} (best {e_best}, "
+                 f"bits {e_bits})")
+            slot = torch.arange(2 * K, device=dev)[None, :] < lens[:, None]
+            e_tb = int(torch.where(slot, codes.int() - pcodes.int(), 0)
+                       .abs().max())
+            need(torch.equal(lens, plens) and e_tb == 0,
+                 f"K2-tb != plain on {label} K={K} ac={ac}")
+            err2 = max(err2, e_best, e_bits)
+            errtb = max(errtb, e_tb)
+        print(f"K2/K2-tb {label}: {n_jobs} merges, K={K}, "
+              f"{len(ac_list)} end-gap configs: equal")
+        fargs = (*packed, ac_list[0][0], ac_list[0][1], sc.go, sc.ge)
+        ms = cuda_ms(lambda: gotoh_forward(*fargs), reps=20)
+        mn = (ml.long() * nl.long()).sum().item()
         if label.startswith("main"):
-            mn = (ml.long() * nl.long()).sum().item()
             steps = int(lens.long().sum())
-            k2 = {"ms": cuda_ms(lambda: gotoh_forward(*fargs), reps=20),
+            k2 = {"ms": ms,
                   "plain_ms": cuda_ms(lambda: gotoh_forward_plain(*fargs),
                                       reps=2, warmup=0),
-                  "shapes": f"{n_jobs} merges, K={K}, ac={ac}, "
+                  "shapes": f"{n_jobs} merges, K={K}, ac={ac_list[0]}, "
                             f"{sum(a.shape[0] > 1 for a, _ in jobs)} "
                             f"multi-row profiles",
                   **bound(sum(x.numel() * 4 for x in packed) + 4 * n_jobs
@@ -568,9 +591,15 @@ def check_gotoh(dev, rng, details):
                       warmup=0),
                   "shapes": f"{n_jobs} tiles {K}x{K} uint8",
                   **bound(2 * steps + 12 * n_jobs, 8 * steps)}
+        else:
+            buckets[K] = {"merges": n_jobs, "cells": mn, "ms": ms,
+                          "ns_per_cell": ms * 1e6 / mn}
+            print(f"K2 K={K}: {ms:.4f} ms for {n_jobs} merges, {mn} cells "
+                  f"({ms * 1e6 / mn:.4f} ns per cell), ac={ac_list[0]}")
     k2["max_abs_err"] = err2
     tb["max_abs_err"] = errtb
-    details["k2_cases"] = [c[0] for c in cases]
+    details["k2_cases"] = [f"{c[0]} K={c[1]}" for c in cases]
+    details["k2_buckets"] = buckets
     return k2, tb
 
 

@@ -10,9 +10,11 @@ and 128...4096 K buckets, the profile packing on the host, and
 per job.
 
 Bounds on the H100: the forward pass writes one byte per DP cell and
-does ~40 integer operations and one division per cell, so it is bound
-by operations except for the smallest merges; the walk is a chain of
-dependent byte loads per merge (latency).
+its recurrence counts 42 integer operations per cell (the exact score's
+division among them; the kernel divides by an f32 estimate and one
+integer correction), so it is bound by operations; it runs a warp per
+merge up to K = 256 and a block of warps with one barrier per DP row
+above. The walk is a chain of dependent byte loads per merge (latency).
 
 Each wrapper launches its kernel on CUDA tensors (or raises) and runs
 its plain PyTorch version, in this module, on CPU tensors. All

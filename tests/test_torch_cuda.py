@@ -67,7 +67,7 @@ def _mutate(rng, s):
     return "".join(out)
 
 
-def _gotoh_case(seed, n_jobs, lo, hi, rows):
+def _gotoh_case(seed, n_jobs, lo, hi, rows, K=None):
     rng = random.Random(seed)
     jobs = []
     for _ in range(n_jobs):
@@ -76,33 +76,97 @@ def _gotoh_case(seed, n_jobs, lo, hi, rows):
         if rows > 1:
             a1 = gotoh(a1, _mutate(rng, base), ac=(True, True))[1]
         jobs.append((a1, to_align(_mutate(rng, base))))
-    K = gotoh_cuda._bucket_k(max(max(x.shape[1], y.shape[1])
-                                 for x, y in jobs))
+    return _pack(jobs, K)
+
+
+def _pack(jobs, K=None):
+    K = K or gotoh_cuda._bucket_k(max(max(x.shape[1], y.shape[1])
+                                      for x, y in jobs))
     return [torch.from_numpy(x)
             for x in gotoh_cuda.pack_bucket(jobs, K, DnaScore())]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ac", ACS)
-@pytest.mark.parametrize("n_jobs,lo,hi,rows", [(64, 60, 120, 1),
-                                                (16, 200, 500, 2),
-                                                (2, 1500, 2100, 1)])
-def test_gotoh_kernels_match_plain(card, ac, n_jobs, lo, hi, rows):
-    prof, wc2, d2, ml, nl = _gotoh_case(n_jobs + lo, n_jobs, lo, hi, rows)
+def deep_jobs(seed, n_jobs, rows1, rows2, lo, hi):
+    """Gotoh jobs of alignment blocks with rows1 and rows2 rows
+    (substitutions and gaps around one base sequence of lo...hi
+    columns): profile depths near the kernel's gate, so that d1 * d2
+    reaches its largest values and the profile score takes both signs."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACGT-", dtype=np.uint8)
+    jobs = []
+    for _ in range(n_jobs):
+        n = int(rng.integers(lo, hi + 1))
+        base = letters[rng.integers(0, 4, n)]
+        pair = []
+        for rows, cut in ((rows1, 0), (rows2, int(rng.integers(0, 20)))):
+            a = np.repeat(base[None, :n - cut], rows, axis=0)
+            hit = rng.random(a.shape) < 0.15
+            a[hit] = letters[rng.integers(0, 5, int(hit.sum()))]
+            pair.append(a)
+        jobs.append(tuple(pair))
+    return jobs
+
+
+def _assert_gotoh(card, prof, wc2, d2, ml, nl, ac):
+    """K2 and K2-tb on the card against the plain versions on the
+    contract's cells: best, the bits of rows < mlen and columns < nlen,
+    lens and the codes; one launch each."""
     want_best, want_bits = gotoh_cuda.gotoh_forward_plain(
         prof, wc2, d2, ml, nl, ac[0], ac[1], -10, -1)
     want_codes, want_lens = gotoh_cuda.gotoh_traceback_plain(want_bits, ml,
                                                              nl)
     dev = [x.to(card) for x in (prof, wc2, d2, ml, nl)]
+    dispatch.reset()
     best, bits = gotoh_cuda.gotoh_forward(*dev, ac[0], ac[1], -10, -1)
     codes, lens = gotoh_cuda.gotoh_traceback(bits, dev[3], dev[4])
     torch.cuda.synchronize()
+    assert dispatch.snapshot()["gotoh"] == 1
     assert torch.equal(best.cpu(), want_best)
     assert torch.equal(lens.cpu(), want_lens)
     for g in range(len(ml)):
         m, n, k = int(ml[g]), int(nl[g]), int(lens[g])
         assert torch.equal(bits[g, :m, :n].cpu(), want_bits[g, :m, :n])
         assert torch.equal(codes[g, :k].cpu(), want_codes[g, :k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac", ACS)
+@pytest.mark.parametrize("K,n_jobs,rows", [(128, 64, 1), (256, 40, 2),
+                                           (512, 16, 2), (1024, 6, 1),
+                                           (2048, 3, 1), (4096, 2, 1)])
+def test_gotoh_kernels_match_plain(card, ac, K, n_jobs, rows):
+    """Every K bucket, each with its own layout in csrc/gotoh.cu."""
+    _assert_gotoh(card, *_gotoh_case(n_jobs + K, n_jobs, K // 2 + 8,
+                                     K * 3 // 4, rows, K), ac)
+
+
+def _length_one():
+    s = to_align(_rand_seq(random.Random(4), 300, 400))
+    return _pack([(s, to_align("A")), (to_align("C"), s),
+                   (to_align("G"), to_align("G")),
+                   (to_align("T"), s[:, :3].copy())], 512)
+
+
+EDGE_CASES = {
+    "one merge": lambda: _gotoh_case(1, 1, 70, 110, 2, 128),
+    "odd batch": lambda: _gotoh_case(2, 37, 130, 200, 1, 256),
+    # merges of 1...110 columns side by side
+    "mixed mlen": lambda: _gotoh_case(3, 45, 1, 110, 1, 128),
+    "length one": _length_one,   # mlen = 1 and nlen = 1 in a wide bucket
+    "deep 300x400": lambda: _pack(deep_jobs(5, 12, 300, 400, 90, 240)),
+    "deep 400x300 K=1024": lambda: _pack(deep_jobs(6, 3, 400, 300, 600,
+                                                   1000)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac", ACS)
+@pytest.mark.parametrize("kind", list(EDGE_CASES))
+def test_gotoh_kernel_edges_match_plain(card, ac, kind):
+    """One merge, an odd batch, mixed lengths side by side, mlen or
+    nlen 1, and deep profiles near the gate (300 x 400 rows: 300 * 400 *
+    125 < 2^24)."""
+    _assert_gotoh(card, *EDGE_CASES[kind](), ac)
 
 
 def _banded_case(seed, n_jobs, lo, hi):

@@ -22,6 +22,7 @@ from delly_tpu.ops.gotoh_pallas import gotoh_batch as jax_gotoh_batch
 from delly_tpu_torch.ops import gotoh_cuda
 from delly_tpu_torch.ops.gotoh import DnaScore as TDnaScore
 from delly_tpu_torch.parallel import dispatch
+from test_torch_cuda import deep_jobs
 from torch_card import torch_cpu  # noqa: F401
 
 ACS = [(False, False), (True, False), (False, True), (True, True)]
@@ -135,3 +136,75 @@ def test_wrapper_checks():
     with pytest.raises(TypeError):
         gotoh_cuda.gotoh_forward(args[0].long(), *args[1:], True, True,
                                  -10, -1)
+
+
+# The CUDA kernel's profile score (csrc/gotoh.cu profile_score) divides
+# without the integer divide: an f32 estimate of trunc(|num| / den) that
+# is exact or one below, then one remainder step. Below, a numpy twin of
+# that integer step against trunc(num / den).
+DEN_MAX = ((1 << 24) - 1) // 125   # d1 * d2 under _eligible's gate
+
+
+def _score_twin(num, den, est):
+    """profile_score's correction, est = trunc(|num| / den) or one below."""
+    a = np.abs(num)
+    q = est + (a - est * den >= den)
+    return np.where(num < 0, -q, q)
+
+
+def _exact(num, den):
+    return np.sign(num) * (np.abs(num) // den)
+
+
+def _estimates(num, den):
+    """The exact quotient and one below it, and the truncations of the
+    extreme f32 estimates the kernel can form: the reciprocal within one
+    ulp (2^-23) either way, the product rounded toward zero (up to 2^-23
+    smaller), |num| and den exact in f32 (below 2^24)."""
+    a = np.abs(num)
+    assert a.max() < 1 << 24 and den.max() < 1 << 24
+    q = a // den
+    hi = np.trunc(a / den * (1 + 2.0 ** -23)).astype(np.int64)
+    lo = np.trunc(a / den * (1 - 2.0 ** -23) ** 2).astype(np.int64)
+    assert (hi <= q).all() and (lo >= q - 1).all()
+    return [q - 1, q, lo, hi]
+
+
+@pytest.mark.parametrize("part", range(4))
+def test_profile_score_division_exact(part):
+    """Every den the gate admits for the default scores (d1 * d2 up to
+    DEN_MAX = 134,217, about 2^17), in four parts; nums at the extremes
+    |num| <= 5 * den (|match|, |mismatch| <= 5 and the A,C,G,T,N counts
+    sum to at most the depth), around every multiple of den, and
+    random."""
+    den = np.arange(1 + part, DEN_MAX + 1, 4, dtype=np.int64)
+    rng = np.random.default_rng(part)
+    cols = [np.zeros_like(den)]
+    for k in range(6):
+        for d in (-1, 0, 1):
+            cols += [k * den + d, -(k * den + d)]
+    cols += [rng.integers(-5 * den, 5 * den + 1) for _ in range(4)]
+    num = np.clip(np.stack(cols, 1), -5 * den[:, None], 5 * den[:, None])
+    dd = np.broadcast_to(den[:, None], num.shape)
+    want = _exact(num, dd)
+    for est in _estimates(num, dd):
+        np.testing.assert_array_equal(_score_twin(num, dd, est), want)
+
+
+def test_profile_score_division_packed_deep():
+    """The num and den of every cell of packed deep merges (300 x 400
+    and 400 x 300 rows): the twin equals the plain version's division."""
+    sc = TDnaScore()
+    for rows1, rows2 in ((300, 400), (400, 300)):
+        jobs = deep_jobs(rows1, 6, rows1, rows2, 60, 120)
+        assert all(gotoh_cuda._eligible(a1, a2) for a1, a2 in jobs)
+        prof, wc2, d2, _ml, _nl = gotoh_cuda.pack_bucket(jobs, 128, sc)
+        prof, wc2, d2 = (x.astype(np.int64) for x in (prof, wc2, d2))
+        num = np.einsum("gra,gac->grc", prof[:, :, :5], wc2)
+        den = np.maximum(prof[:, :, 5:6] * d2[:, None, :], 1)
+        assert den.max() > 100_000 and num.min() < 0 < num.max()
+        q = torch.div(torch.from_numpy(np.abs(num)), torch.from_numpy(den),
+                      rounding_mode="floor").numpy()
+        want = np.where(num < 0, -q, q)
+        for est in _estimates(num, den):
+            np.testing.assert_array_equal(_score_twin(num, den, est), want)
