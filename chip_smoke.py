@@ -9,8 +9,9 @@
    source, all started together, printing the build seconds and the
    -Xptxas -v register/spill lines; beside them K3 once more with
    K3_COUNT_INTERIOR into a cubin, and the probes of PROBE_SRC below.
-   Counts, in cuobjdump -sass, the integer instructions of K1's column
-   loop per Myers word, of K2's row loop per cell, and of K3's interior
+   Counts, in cuobjdump -sass, the integer instructions per Myers word
+   of K1's column loop (thread per pair) and step loop (lane groups), of
+   K2's row loop per cell, and of K3's interior
    row loop per cell and per thread and row, beside the operations per
    unit that each bound counts. Times the probes: ns per dependent
    shared-memory byte load (one K3-tb walk step's floor), and ns per
@@ -19,10 +20,14 @@
    cluster would add per DP row).
 2. Holds K1 and K2/K2-tb against their plain PyTorch versions on the
    same inputs, made from numpy.random.default_rng(seed), at the shapes
-   of the sr main path and beyond (K2 at every K bucket in all four
-   end-gap configs). Tolerance: exact equality (integer and byte
-   outputs). Times kernel and plain version with CUDA events, and K2 at
-   each bucket.
+   of the sr main path and beyond (K1 at queries of 64 to 4,096 rows,
+   K2 at every K bucket in all four end-gap configs). Tolerance: exact
+   equality (integer and byte outputs). Times kernel and plain version
+   with CUDA events at the main shapes, K1 at every case and K2 and
+   K2-tb at each bucket, and K1 and K2-tb beside that replayed from
+   a CUDA graph (the kernels alone: at ~0.01-0.06 ms the wrapper's host
+   overhead shows in the events); K2-tb's chain floor is the main
+   shape's longest walk x the chase probe's step.
 3. Generates the svmix, deepgeno and long-split datasets with the port's
    copy of the generators and runs `sr` on each, and `sr -v` on
    deepgeno, through the CLI entry point on the card, with the launch
@@ -217,6 +222,31 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Per-call time of the kernels fn launches, replayed from one CUDA
+    graph of `reps` calls, so without the host's launch overhead, which
+    CUDA events around wrapper calls include (it is comparable to K1's
+    and K2-tb's times at the main shapes)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
 def timed(fn):
     """One call of fn, timed with CUDA events: (result, ms)."""
     import torch
@@ -337,12 +367,15 @@ SASS_INS = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);")
 
 
-def sass_loops(path: str, kernel: str, barrier: bool) -> dict:
+def sass_loops(path: str, kernel: str, must: str | None = None,
+               avoid: tuple = (), count: str | None = None) -> dict:
     """{template arguments: (instructions, integer instructions)} of the
     main loop of each instantiation of `kernel` in `cuobjdump -sass` of
     the library or cubin at `path`: the largest loop (a backward branch
-    and its target), holding a block barrier if `barrier`. A static
-    count: every instruction of the loop body counts once."""
+    and its target) that holds the opcode `must` (if given) and none of
+    `avoid`; with `count` (an opcode with its modifiers, such as LDS.U8)
+    a third number, how many of those the loop holds. A static count:
+    every instruction of the loop body counts once."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, check=True).stdout
@@ -352,20 +385,23 @@ def sass_loops(path: str, kernel: str, barrier: bool) -> dict:
         if f"{len(kernel)}{kernel}I" not in name:
             continue
         targs = tuple(int(x) for x in re.findall(r"Li(\d+)E", name))
-        ins = [(int(a, 16), op.split(".")[0], rest)
+        ins = [(int(a, 16), op.split(".")[0], rest, op)
                for a, op, rest in SASS_INS.findall(fn)]
-        at = {a: i for i, (a, _op, _rest) in enumerate(ins)}
+        at = {a: i for i, (a, _op, _rest, _full) in enumerate(ins)}
         body = []
-        for i, (a, op, rest) in enumerate(ins):
+        for i, (a, op, rest, _full) in enumerate(ins):
             tgt = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
             if tgt and int(tgt.group(1), 16) < a:
                 seg = ins[at[int(tgt.group(1), 16)]:i + 1]
-                if len(seg) > len(body) and (
-                        not barrier or any(o == "BAR" for _a, o, _r in seg)):
+                ops = {o for _a, o, _r, _f in seg}
+                if (len(seg) > len(body) and (must is None or must in ops)
+                        and not ops.intersection(avoid)):
                     body = seg
         need(body, f"SASS: no main loop in {kernel}<{targs}>")
         loops[targs] = (len(body), sum(not o.startswith(NON_ALU)
-                                       for _a, o, _rest in body))
+                                       for _a, o, _rest, _f in body))
+        if count:
+            loops[targs] += (sum(f == count for _a, _o, _r, f in body),)
     need(loops, f"SASS: no instantiation of {kernel} in {path}")
     return loops
 
@@ -379,8 +415,12 @@ def slope(loops: dict, lo: tuple, hi: tuple, per) -> float:
 def kernel_sass(details, k3_count: str) -> dict:
     """Prints what the kernels execute per unit of their recurrence, from
     `cuobjdump -sass` of the libraries just built, beside the operations
-    their bounds count: K1 per Myers word (column loop, slope over words
-    per query), K2 per cell and per lane and row (row loop, slope over
+    their bounds count: K1 per Myers word (the thread-per-pair column
+    loop, slope over W = 1 to 2, and the lane groups' step loop, slope
+    over W = 64 to 128, 2 to 4 words a lane; each per column or step,
+    counted by the loop's byte loads: one letter lookup per column, and
+    the target byte and its lookup per step),
+    K2 per cell and per lane and row (row loop, slope over
     columns per lane between the warp-per-merge instantiations),
     K3 per cell and per thread and row (the interior path alone, from the
     build `k3_count` with K3_COUNT_INTERIOR; slope over 4 and 8 slots per
@@ -388,18 +428,32 @@ def kernel_sass(details, k3_count: str) -> dict:
     threads): integer instructions."""
     from delly_tpu_torch.ops import _build
 
-    k1 = sass_loops(_build._lib_path("myers"), "myers_kernel", False)
-    k1_word = slope(k1, (4,), (8,), lambda t: t[0])
-    k2 = sass_loops(_build._lib_path("gotoh"), "gotoh_kernel", False)
+    k1 = sass_loops(_build._lib_path("myers"), "myers_thread_kernel",
+                    avoid=("BAR", "STS", "LDGSTS"), count="LDS.U8")
+    k1l = sass_loops(_build._lib_path("myers"), "myers_lanes_kernel",
+                     must="SHFL", avoid=("BAR",), count="LDS.U8")
+    per_col = {k: v[1] / v[2] for k, v in k1.items() if v[2]}
+    per_step = {k: v[1] / (v[2] / 2) for k, v in k1l.items() if v[2]}
+    need((1,) in per_col and (2,) in per_col and (64,) in per_step
+         and (128,) in per_step, "SASS: K1 loops without byte loads")
+    k1_word = per_col[(2,)] - per_col[(1,)]
+    k1l_word = (per_step[(128,)] - per_step[(64,)]) / 2
+    k2 = sass_loops(_build._lib_path("gotoh"), "gotoh_kernel")
     k2w = sorted(k for k in k2 if k[1] == 1)    # one warp per merge
     k2_cell = slope(k2, k2w[0], k2w[-1], lambda t: t[0])
     k2_row = k2[k2w[0]][1] - k2w[0][0] * k2_cell
-    k3 = sass_loops(_build._lib_path("gotoh_banded"), "banded_kernel", True)
-    k3i = sass_loops(k3_count, "banded_kernel", True)
+    k3 = sass_loops(_build._lib_path("gotoh_banded"), "banded_kernel", "BAR")
+    k3i = sass_loops(k3_count, "banded_kernel", "BAR")
     k3_cell = slope(k3i, (4, 256), (8, 256), lambda t: t[0])
     k3_row = k3i[(4, 256)][1] - 4 * k3_cell
-    print(f"K1 SASS: {k1_word:g} integer instructions per Myers word "
-          f"(column loop, W=4 to 8); the bound counts {MYERS_OPS_PER_WORD}")
+    print(f"K1 SASS: {k1_word:g} integer instructions per Myers word in "
+          f"the thread-per-pair column loop (W=1 to 2), {k1l_word:g} in the "
+          f"lane groups' step loop (W=64 to 128); the bound counts "
+          f"{MYERS_OPS_PER_WORD}. Integer instructions per column, thread "
+          f"per pair: " + ", ".join(f"W={k[0]} {v:.2f}" for k, v in
+                                    sorted(per_col.items()))
+          + "; per step, lane groups: " + ", ".join(
+              f"W={k[0]} {v:.2f}" for k, v in sorted(per_step.items())))
     print(f"K2 SASS: {k2_cell:g} integer instructions per cell and "
           f"{k2_row:g} per lane and row (row loop of the warp-per-merge "
           f"layout, {k2w[0][0]} to {k2w[-1][0]} columns per lane); the bound "
@@ -414,7 +468,12 @@ def kernel_sass(details, k3_count: str) -> dict:
         + ", ".join(f" {c}x{t} {a}" for (c, t), (_n, a) in sorted(k3.items())))
     details["sass"] = {
         "k1_column_loop": {str(k): v for k, v in k1.items()},
+        "k1_step_loop": {str(k): v for k, v in k1l.items()},
+        "k1_integer_per_column": {str(k): v for k, v in per_col.items()},
+        "k1_lanes_integer_per_step": {str(k): v
+                                      for k, v in per_step.items()},
         "k1_integer_per_word": k1_word,
+        "k1_lanes_integer_per_word": k1l_word,
         "k2_row_loop": {str(k): v for k, v in k2.items()},
         "k2_integer_per_cell": k2_cell, "k2_integer_per_lane_row": k2_row,
         "k3_row_loop_both_paths": {f"{c}x{t}": v
@@ -446,41 +505,60 @@ def _myers_batch(rng, b, m, n, nalpha, mode):
 
 
 def check_myers(dev, rng, details) -> dict:
+    """K1 against the plain version at the genotyping shape and at
+    queries of 512 to 4,096 rows (the lane groups' layout), each case
+    timed through the wrapper; the main shape's numbers for the kernels
+    line."""
     import torch
 
-    from delly_tpu_torch.ops.myers import alphabet_lut, myers_plain
-    from delly_tpu_torch.ops.myers_cuda import myers
+    from delly_tpu_torch.ops.myers import (alphabet_lut, alphabet_size,
+                                           myers_plain)
+    from delly_tpu_torch.ops.myers_cuda import launch_geometry, myers, \
+        words_bucket
 
     cases = [("main: genotyping HW", 86_484, 64, 128, 4, 2),
              ("NW", 4096, 64, 128, 4, 0), ("SHW", 4096, 64, 128, 4, 1),
              ("5 letters HW", 4096, 64, 128, 5, 2),
              ("m=512 NW", 512, 512, 640, 4, 0),
              ("m=1024 NW", 256, 1024, 1100, 4, 0),
-             ("m=2048 SHW", 128, 2048, 2100, 4, 1)]
+             ("m=2048 SHW", 128, 2048, 2100, 4, 1),
+             ("m=4096 NW", 64, 4096, 4200, 4, 0)]
     out = {}
     max_err = 0
+    times = {}
     for label, b, m, n, nalpha, mode in cases:
         q, ql, t, tl, mode = _myers_batch(rng, b, m, n, nalpha, mode)
         lut = alphabet_lut(q, t)
+        na = alphabet_size(lut)
         args = [torch.from_numpy(x).to(dev) for x in (q, ql, t, tl, lut)]
-        got = myers(*args, mode)
+        got = myers(*args, mode, na)
         want = myers_plain(*args, mode)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         need(torch.equal(got, want), f"K1 != plain on {label} (max {err})")
         max_err = max(max_err, err)
-        print(f"K1 {label}: {b} pairs {m}x{n}: equal")
+        ms = cuda_ms(lambda: myers(*args, mode, na), reps=20)
+        dev_ms = device_ms(lambda: myers(*args, mode, na))
+        geo = launch_geometry(words_bucket(m), na)
+        print(f"K1 {label}: {b} pairs {m}x{n}: equal; {ms:.5f} ms through "
+              f"the wrapper, {dev_ms:.5f} ms replayed ({geo['layout']}, "
+              f"{geo['lanes']} lanes a pair)")
+        times[label] = {"pairs": b, "m": m, "n": n, "ms": ms,
+                        "device_ms": dev_ms, "layout": geo["layout"],
+                        "lanes": geo["lanes"]}
         if label.startswith("main"):
-            ms = cuda_ms(lambda: myers(*args, mode), reps=20)
             plain = cuda_ms(lambda: myers_plain(*args, mode), reps=2)
             words = (ql.astype(np.int64) + 31) // 32
             ops = float((words * tl).sum() * MYERS_OPS_PER_WORD
                         + tl.sum() * MYERS_OPS_PER_COLUMN)
             nbytes = q.nbytes + t.nbytes + ql.nbytes + tl.nbytes + 256 + 4 * b
-            out = {"ms": ms, "plain_ms": plain, "shapes": f"{b} pairs, "
+            out = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                   "shapes": f"{b} pairs, "
                    f"{m}x{n} uint8, HW", **bound(nbytes, ops)}
     out["max_abs_err"] = max_err
-    details["k1_cases"] = [c[0] for c in cases]
+    out["case_ms"] = {k: v["ms"] for k, v in times.items()}
+    out["case_device_ms"] = {k: v["device_ms"] for k, v in times.items()}
+    details["k1_cases"] = times
     return out
 
 
@@ -515,10 +593,11 @@ def _gotoh_jobs(rng, n_jobs, lo, hi, multi_frac):
     return jobs
 
 
-def check_gotoh(dev, rng, details):
+def check_gotoh(dev, rng, details, step_ns):
     """K2/K2-tb against the plain versions at the main path's shape and
     at every K bucket in all four end-gap configs; times the main shape
-    (the kernels line) and each bucket."""
+    (the kernels line) and each bucket. K2-tb's chain floor: the main
+    shape's longest walk x `step_ns`, the chase probe's step."""
     import torch
 
     from delly_tpu_torch.ops.gotoh import DnaScore
@@ -573,6 +652,10 @@ def check_gotoh(dev, rng, details):
               f"{len(ac_list)} end-gap configs: equal")
         fargs = (*packed, ac_list[0][0], ac_list[0][1], sc.go, sc.ge)
         ms = cuda_ms(lambda: gotoh_forward(*fargs), reps=20)
+        _best, bits = gotoh_forward(*fargs)
+        tb_ms = cuda_ms(lambda: gotoh_traceback(bits, ml, nl), reps=20)
+        tb_dev = device_ms(lambda: gotoh_traceback(bits, ml, nl))
+        lens = gotoh_traceback(bits, ml, nl)[1]
         mn = (ml.long() * nl.long()).sum().item()
         if label.startswith("main"):
             steps = int(lens.long().sum())
@@ -584,18 +667,29 @@ def check_gotoh(dev, rng, details):
                             f"multi-row profiles",
                   **bound(sum(x.numel() * 4 for x in packed) + 4 * n_jobs
                           + mn, mn * GOTOH_OPS_PER_CELL)}
-            tb = {"ms": cuda_ms(lambda: gotoh_traceback(bits, ml, nl),
-                                reps=20),
+            longest = int(lens.max())
+            floor_ms = longest * step_ns * 1e-6
+            tb = {"ms": tb_ms, "device_ms": tb_dev,
                   "plain_ms": cuda_ms(
                       lambda: gotoh_traceback_plain(bits, ml, nl), reps=2,
                       warmup=0),
-                  "shapes": f"{n_jobs} tiles {K}x{K} uint8",
+                  "shapes": f"{n_jobs} tiles {K}x{K} uint8, {steps} walk "
+                            f"steps",
+                  "longest_walk_steps": longest, "smem_step_ns": step_ns,
+                  "chain_floor_ms": floor_ms,
                   **bound(2 * steps + 12 * n_jobs, 8 * steps)}
+            print(f"K2-tb main: {tb_ms:.5f} ms through the wrapper, "
+                  f"{tb_dev:.5f} ms replayed, for {n_jobs} walks, longest "
+                  f"{longest} steps, chain floor {floor_ms:.5f} ms")
         else:
             buckets[K] = {"merges": n_jobs, "cells": mn, "ms": ms,
-                          "ns_per_cell": ms * 1e6 / mn}
+                          "ns_per_cell": ms * 1e6 / mn, "tb_ms": tb_ms,
+                          "tb_device_ms": tb_dev,
+                          "tb_longest_walk": int(lens.max())}
             print(f"K2 K={K}: {ms:.4f} ms for {n_jobs} merges, {mn} cells "
-                  f"({ms * 1e6 / mn:.4f} ns per cell), ac={ac_list[0]}")
+                  f"({ms * 1e6 / mn:.4f} ns per cell), ac={ac_list[0]}; "
+                  f"K2-tb {tb_ms:.5f} ms, {tb_dev:.5f} ms replayed, longest "
+                  f"walk {int(lens.max())} steps")
     k2["max_abs_err"] = err2
     tb["max_abs_err"] = errtb
     details["k2_cases"] = [f"{c[0]} K={c[1]}" for c in cases]
@@ -1110,7 +1204,7 @@ def main() -> int:
         step_ns = phase_probes(dev, probe_lib, details)
         rng = np.random.default_rng(SEED)
         k1 = check_myers(dev, rng, details)
-        k2, tb = check_gotoh(dev, rng, details)
+        k2, tb = check_gotoh(dev, rng, details, step_ns)
         launches, k3_launches, cmds = phase_e2e(work, details)
         phase_host_dp(work, details)
         # the same commands on the host (the plain versions), all at once
@@ -1156,7 +1250,7 @@ def main() -> int:
             "shapes": meas["shapes"],
             **{k: v for k, v in meas.items() if k.startswith(
                 ("row_loop", "launch_ms", "longest", "smem_step",
-                 "chain_floor"))}})
+                 "chain_floor", "case_", "device_ms"))}})
     details["kernels"] = kernels
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:

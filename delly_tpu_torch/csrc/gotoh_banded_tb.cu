@@ -32,52 +32,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
 constexpr int kQuant = 128;
 constexpr int kStages = 2;            // windows in flight per walk
 constexpr int kStageBytes = 32768;    // bytes of one window
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(1)
-               : "memory");
-}
-
-// one bulk copy of `bytes` (a multiple of 16, both addresses 16-aligned)
-// into shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  // order this thread's earlier reads of the buffer before the copy
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
 
 __global__ void __launch_bounds__(1)
 banded_tb_kernel(const uint8_t* __restrict__ bits,
@@ -94,18 +55,18 @@ banded_tb_kernel(const uint8_t* __restrict__ bits,
   const int m = mlen[g], n = nlen[g];
   const int rsh = 31 - __clz(kStageBytes / B);   // log2 of rows per window
   const int nwin = (m + (1 << rsh) - 1) >> rsh;  // window w: rows w << rsh on
-  for (int s = 0; s < kStages; ++s) bar_init(&bar[s]);
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  for (int s = 0; s < kStages; ++s) bulk::bar_init(&bar[s]);
+  bulk::bar_init_fence();
 
   auto fetch = [&](int w) {
     const int r0 = w << rsh;
     const int rows = min(1 << rsh, m - r0);
-    bulk_load(win + ((unsigned)w % kStages) * kStageBytes,
-              tile + (size_t)r0 * B, (uint32_t)(rows * B),
-              &bar[(unsigned)w % kStages]);
+    bulk::load(win + ((unsigned)w % kStages) * kStageBytes,
+               tile + (size_t)r0 * B, (uint32_t)(rows * B),
+               &bar[(unsigned)w % kStages]);
   };
   auto wait = [&](int w) {
-    bar_wait(&bar[(unsigned)w % kStages], ((nwin - 1 - w) / kStages) & 1);
+    bulk::wait(&bar[(unsigned)w % kStages], ((nwin - 1 - w) / kStages) & 1);
   };
   // windows nwin-1 .. fetched are in flight or arrived; cw is the lowest
   // window waited for (nwin before the first)

@@ -2,145 +2,430 @@
 //
 // Replaces the Pallas kernel delly_tpu/ops/myers_pallas.py::_make_pallas
 // (body :262-333, recurrence :291-318) and the on-device Peq packing of
-// its pipeline (:67-127).
+// its pipeline (:67-127). The recurrence, the modes, the per-pair lengths
+// and the qlen = 0 rule are those of the plain version, ops/myers.py.
 //
-// One thread per (query, target) pair. The thread builds its query's
-// Peq bit planes (one 32-bit word per 32 query rows, one plane per
-// letter code) in local memory, keeps the Pv/Mv words in registers, and
-// walks the target columns in order. Words couple only through the +-1
-// horizontal delta; the score is read at bit qlen-1, so only words up to
-// (qlen-1)/32 are updated. Target codes come column-major (N, B) so a
-// warp's 32 loads of one column are coalesced.
+// A query of W 32-row words (W = words_bucket(M), a power of two) is
+// coded through the batch's byte -> letter table into Peq bit planes, one
+// per letter (nalpha of them; a code >= nalpha reads an empty plane), kept
+// in shared memory. Targets stay row-major (B, N): each block stages its
+// pairs' target rows in chunks of 64 columns with 4-byte cp.async copies
+// into rows padded to 17 words, so one warp's reads of a column fall in
+// distinct banks, and the next chunk is in flight while the current one
+// computes. Two layouts, chosen on the host (ops/myers_cuda.py
+// launch_geometry, which also sizes the shared memory):
 //
-// Bound on the H100: operations and bytes about equally. A word update
-// is ~17 integer operations, and each pair reads its query and target
-// bytes once; at the genotyping shape (64 x 128) the two floors are
-// within 10% of each other (chip_smoke.py states both). The design does
-// nothing yet to hide the dependency chain across words (one chain per
-// thread, many threads per SM) or to coalesce the query reads.
+// - thread: one thread per pair (queries of up to 64 rows, W <= 2; the
+//   genotyping probes). The block first stages its query rows in shared
+//   memory with 16-byte coalesced loads; each thread builds its planes,
+//   laid out [letter][word][thread], from there. It reads 4 target
+//   columns per 32-bit load.
+// - lanes: a group of Gl = min(W, 32) lanes per pair (W >= 4; queries of
+//   65 to 4,096 rows), lane l holding words l*W/Gl ... (l+1)*W/Gl - 1.
+//   The lanes run the diagonal wavefront of the plain version: at step s
+//   lane l updates its words for column s - l, taking its carry-in from
+//   lane l-1's carry-out of the step before by a shuffle. Each lane reads
+//   its own words' 32 query bytes (a whole sector) and keeps its own
+//   planes; the lane holding bit qlen-1 keeps the score and the result.
+//
+// Bound on the H100: operations, about 24 per Myers word and column
+// (chip_smoke.py counts them); the bytes of the pairs, read once, weigh
+// about a sixth of that at the genotyping shape. The design keeps the
+// operands in shared memory and registers so the column loop waits on
+// no global load, and spreads long queries over lanes so their words'
+// chains run side by side.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxAlpha = 16;   // letter codes >= 16 have an empty plane
+constexpr int kMaxAlpha = 16;   // letter codes >= nalpha have an empty plane
 constexpr int kBig = 1 << 20;
+constexpr int kChunk = 64;      // target columns per staged chunk
+constexpr int kRowWords = 17;   // a staged row: 64 columns and 4 bytes pad
 
-template <int W>
-__global__ void myers_kernel(const uint8_t* __restrict__ q, int qstride,
-                             const int32_t* __restrict__ qlens,
-                             const uint8_t* __restrict__ tT,
-                             const int32_t* __restrict__ tlens,
-                             const uint8_t* __restrict__ lut, int B,
-                             int mode, int32_t* __restrict__ out) {
-  __shared__ uint8_t s_lut[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) s_lut[i] = lut[i];
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int qlen = qlens[b];
-  const int tlen = tlens[b];
-  if (qlen <= 0) {  // no bit qlen-1 to read: NW = tlen, SHW/HW = 0
-    out[b] = mode == 0 ? tlen : 0;
-    return;
-  }
-  const int hw = (qlen - 1) >> 5;
-  const uint32_t hb = (uint32_t)((qlen - 1) & 31);
+struct Args {
+  const uint8_t* q;      // (B, M) query bytes
+  const int32_t* qlens;
+  const uint8_t* t;      // (B, N) target bytes, row-major
+  const int32_t* tlens;
+  const uint8_t* lut;    // 256 byte -> letter code
+  int32_t* out;
+  int B, M, N, mode, nalpha;
+  int qvec;              // q 16-byte aligned and M % 32 == 0
+  int tvec;              // t 4-byte aligned and N % 4 == 0
+};
 
-  uint32_t peq[kMaxAlpha][W];
-#pragma unroll
-  for (int a = 0; a < kMaxAlpha; ++a)
-#pragma unroll
-    for (int wi = 0; wi < W; ++wi) peq[a][wi] = 0u;
-  const uint8_t* qb = q + (size_t)b * qstride;
-  for (int i = 0; i < qlen; ++i) {
-    const int c = s_lut[qb[i]];
-    if (c < kMaxAlpha) peq[c][i >> 5] |= 1u << (i & 31);
-  }
-
-  uint32_t pv[W], mv[W];
-#pragma unroll
-  for (int wi = 0; wi < W; ++wi) {
-    pv[wi] = 0xFFFFFFFFu;
-    mv[wi] = 0u;
-  }
-  int score = qlen;
-  int res = mode == 0 ? (tlen == 0 ? qlen : kBig) : qlen;
-  const int hin0 = mode == 2 ? 0 : 1;
-  for (int j = 0; j < tlen; ++j) {
-    const int c = s_lut[tT[(size_t)j * B + b]];
-    int hin = hin0;
-    int delta = 0;
-#pragma unroll
-    for (int wi = 0; wi < W; ++wi) {
-      if (wi <= hw) {
-        const uint32_t eq = c < kMaxAlpha ? peq[c][wi] : 0u;
-        const uint32_t p = pv[wi];
-        const uint32_t mm = mv[wi];
-        const uint32_t hneg = hin < 0 ? 1u : 0u;
-        const uint32_t hpos = hin > 0 ? 1u : 0u;
-        const uint32_t xv = eq | mm;
-        const uint32_t eq2 = eq | hneg;
-        const uint32_t xh = (((eq2 & p) + p) ^ p) | eq2;
-        uint32_t ph = mm | ~(xh | p);
-        uint32_t mh = p & xh;
-        const int hout = (int)(ph >> 31) - (int)(mh >> 31);
-        if (wi == hw) delta = (int)((ph >> hb) & 1u) - (int)((mh >> hb) & 1u);
-        ph = (ph << 1) | hpos;
-        mh = (mh << 1) | hneg;
-        pv[wi] = mh | ~(xv | ph);
-        mv[wi] = ph & xv;
-        hin = hout;
-      }
-    }
-    score += delta;
-    if (mode == 0) {
-      if (j + 1 == tlen) res = score;
-    } else {
-      res = score < res ? score : res;
-    }
-  }
-  out[b] = res;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
+// Columns [j0, j0 + 64) of the target rows of pairs b0 ... b0 + np - 1
+// into `buf` (row p at p * kRowWords words); columns past N are left
+// unwritten, and never read.
+__device__ __forceinline__ void stage_targets(const Args& a, uint32_t* buf,
+                                              int b0, int np, int j0) {
+  if (a.tvec) {
+    const int per = min(kChunk, a.N - j0) >> 2;
+    for (int e = threadIdx.x; e < np * 16; e += blockDim.x) {
+      const int p = e >> 4, u = e & 15;
+      if (u < per)
+        cp_async4(buf + p * kRowWords + u,
+                  a.t + (size_t)(b0 + p) * a.N + j0 + 4 * u);
+    }
+  } else {
+    uint8_t* bb = reinterpret_cast<uint8_t*>(buf);
+    for (int e = threadIdx.x; e < np * kChunk; e += blockDim.x) {
+      const int p = e >> 6, u = e & 63;
+      if (j0 + u < a.N)
+        bb[p * 4 * kRowWords + u] = a.t[(size_t)(b0 + p) * a.N + j0 + u];
+    }
+  }
+}
+
+// One Myers column over words first ... first + NW - 1 of one pair, the
+// carry-in `hin` (+-1 or 0) in and the carry-out returned; `delta` takes
+// the score's step at bit hb of word hw when it is among them. Words
+// above hw are updated too: a word's carry goes only upward, so they never
+// reach the score, and updating them costs less than testing for them.
+template <int NW>
+__device__ __forceinline__ int column(const uint32_t (&eq)[NW],
+                                      uint32_t (&pv)[NW], uint32_t (&mv)[NW],
+                                      int hin, int first, int hw,
+                                      uint32_t hb, int& delta) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const uint32_t p = pv[k], mm = mv[k];
+    const uint32_t hneg = hin < 0 ? 1u : 0u;
+    const uint32_t hpos = hin > 0 ? 1u : 0u;
+    const uint32_t xv = eq[k] | mm;
+    const uint32_t eq2 = eq[k] | hneg;
+    const uint32_t xh = (((eq2 & p) + p) ^ p) | eq2;
+    uint32_t ph = mm | ~(xh | p);
+    uint32_t mh = p & xh;
+    const int hout = (int)(ph >> 31) - (int)(mh >> 31);
+    if (first + k == hw)
+      delta = (int)((ph >> hb) & 1u) - (int)((mh >> hb) & 1u);
+    ph = (ph << 1) | hpos;
+    mh = (mh << 1) | hneg;
+    pv[k] = mh | ~(xv | ph);
+    mv[k] = ph & xv;
+    hin = hout;
+  }
+  return hin;
+}
+
+__device__ __forceinline__ void track(int mode, int j, int tlen, int score,
+                                      int& res) {
+  if (mode == 0) {
+    if (j + 1 == tlen) res = score;
+  } else {
+    res = score < res ? score : res;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// thread layout: one thread per pair, W <= 2
+// ---------------------------------------------------------------------------
+
 template <int W>
-void launch(const uint8_t* q, int qstride, const int32_t* qlens,
-            const uint8_t* tT, const int32_t* tlens, const uint8_t* lut,
-            int B, int mode, int32_t* out, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  myers_kernel<W><<<blocks, threads, 0, stream>>>(q, qstride, qlens, tT,
-                                                  tlens, lut, B, mode, out);
+__global__ void __launch_bounds__(128) myers_thread_kernel(Args a) {
+  extern __shared__ uint32_t dyn[];
+  __shared__ uint8_t s_lut[256];
+  __shared__ int s_tmax;
+  const int P = blockDim.x, tid = threadIdx.x;
+  const int b0 = blockIdx.x * P;
+  const int np = min(P, a.B - b0);
+  uint32_t* peq = dyn;                                // [nalpha+1][W][P]
+  uint32_t* ring = dyn + (a.nalpha + 1) * W * P;      // [2][P][kRowWords]
+  for (int i = tid; i < 256; i += P) s_lut[i] = a.lut[i];
+  if (tid == 0) s_tmax = 0;
+  // the block's query rows, row p at ring + p * qs words (qs odd)
+  const int qs = ((a.M + 3) >> 2) | 1;
+  if (a.qvec) {
+    const uint4* src = reinterpret_cast<const uint4*>(a.q + (size_t)b0 * a.M);
+    for (int e = tid; e < np * a.M / 16; e += P) {
+      const uint4 v = src[e];
+      const int off = e * 16, p = off / a.M, w = p * qs + (off - p * a.M) / 4;
+      ring[w] = v.x;
+      ring[w + 1] = v.y;
+      ring[w + 2] = v.z;
+      ring[w + 3] = v.w;
+    }
+  } else {
+    uint8_t* rb = reinterpret_cast<uint8_t*>(ring);
+    for (int e = tid; e < np * a.M; e += P) {
+      const int p = e / a.M;
+      rb[p * 4 * qs + e - p * a.M] = a.q[(size_t)b0 * a.M + e];
+    }
+  }
+  __syncthreads();
+  const bool live = tid < np;
+  const int b = b0 + tid;
+  const int qlen = live ? a.qlens[b] : 0;
+  const int tlen = live ? a.tlens[b] : 0;
+  const int tl = max(0, min(tlen, a.N));   // columns this pair reads
+  if (tl) atomicMax(&s_tmax, tl);
+  for (int pl = 0; pl <= a.nalpha; ++pl)
+#pragma unroll
+    for (int w = 0; w < W; ++w) peq[(pl * W + w) * P + tid] = 0u;
+  {
+    const uint32_t* qrow = ring + tid * qs;
+    const int qn = min(qlen, a.M);
+#pragma unroll 1
+    for (int i4 = 0; i4 < qn; i4 += 4) {
+      const uint32_t x = qrow[i4 >> 2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i4 + e;
+        const int c = s_lut[(x >> (8 * e)) & 255u];
+        if (i < qn && c < a.nalpha)
+          peq[(c * W + (i >> 5)) * P + tid] |= 1u << (i & 31);
+      }
+    }
+  }
+  __syncthreads();   // planes built, query rows read: the ring takes targets
+
+  const int hw = (qlen - 1) >> 5;
+  const uint32_t hb = (uint32_t)((qlen - 1) & 31);
+  uint32_t pv[W], mv[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    pv[w] = 0xFFFFFFFFu;
+    mv[w] = 0u;
+  }
+  int score = qlen;
+  int res = a.mode == 0 ? (tlen == 0 ? qlen : kBig) : qlen;
+  const int hin0 = a.mode == 2 ? 0 : 1;
+  const int nchunks = (s_tmax + kChunk - 1) / kChunk;
+  if (nchunks) stage_targets(a, ring, b0, np, 0);
+  cp_async_commit();
+  for (int k = 0; k < nchunks; ++k) {
+    if (k + 1 < nchunks)
+      stage_targets(a, ring + ((k + 1) & 1) * P * kRowWords, b0, np,
+                    (k + 1) * kChunk);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const uint32_t* row = ring + (k & 1) * P * kRowWords + tid * kRowWords;
+    const int jn = min(kChunk, tl - k * kChunk);
+    auto step = [&](int c, int j) {
+      c = min(c, a.nalpha);
+      uint32_t eq[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) eq[w] = peq[(c * W + w) * P + tid];
+      int delta = 0;
+      column<W>(eq, pv, mv, hin0, 0, hw, hb, delta);
+      score += delta;
+      track(a.mode, j, tlen, score, res);
+    };
+    int c4 = 0;
+#pragma unroll 1
+    for (; c4 + 4 <= jn; c4 += 4) {   // 4 columns per 32-bit load
+      const uint32_t x = row[c4 >> 2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        step(s_lut[(x >> (8 * e)) & 255u], k * kChunk + c4 + e);
+    }
+#pragma unroll 1
+    for (; c4 < jn; ++c4)
+      step(s_lut[reinterpret_cast<const uint8_t*>(row)[c4]], k * kChunk + c4);
+    __syncthreads();   // done with this buffer before it is refilled
+  }
+  if (live) a.out[b] = qlen <= 0 ? (a.mode == 0 ? tlen : 0) : res;
+}
+
+// ---------------------------------------------------------------------------
+// lanes layout: Gl = min(W, 32) lanes per pair, W / Gl words per lane
+// ---------------------------------------------------------------------------
+
+template <int W>
+__global__ void __launch_bounds__(128) myers_lanes_kernel(Args a) {
+  constexpr int GL = W < 32 ? W : 32;
+  constexpr int WL = W / GL;
+  extern __shared__ uint32_t dyn[];
+  __shared__ uint8_t s_lut[256];
+  __shared__ int s_tmax;
+  const int P = blockDim.x / GL, tid = threadIdx.x;
+  const int p = tid / GL, l = tid % GL;
+  const int b0 = blockIdx.x * P;
+  const int np = min(P, a.B - b0);
+  // plane c, word (l, k) of pair p: conflict-free across a warp's lanes
+  uint32_t* peq = dyn + p * W + l;                   // [nalpha+1][P][W]
+  const int pstride = P * W;
+  uint32_t* ring = dyn + (a.nalpha + 1) * P * W;     // [4][P][kRowWords]
+  for (int i = tid; i < 256; i += blockDim.x) s_lut[i] = a.lut[i];
+  if (tid == 0) s_tmax = 0;
+  __syncthreads();
+  const bool live = p < np;
+  const int b = b0 + p;
+  const int qlen = live ? a.qlens[b] : 0;
+  const int tlen = live ? a.tlens[b] : 0;
+  const int tl = max(0, min(tlen, a.N));
+  if (l == 0 && tl) atomicMax(&s_tmax, tl);
+  // this lane's words of every plane, from its own 32 query bytes a word
+  for (int pl = 0; pl <= a.nalpha; ++pl)
+#pragma unroll
+    for (int k = 0; k < WL; ++k) peq[pl * pstride + k * GL] = 0u;
+  const int qn = min(qlen, a.M);
+  const uint8_t* qrow = a.q + (size_t)b * a.M;
+#pragma unroll 1
+  for (int k = 0; k < WL; ++k) {
+    const int base = 32 * (l * WL + k);
+    if (base >= qn) break;
+    uint32_t* dst = peq + k * GL;
+    if (a.qvec) {
+      const uint4* src = reinterpret_cast<const uint4*>(qrow + base);
+      const uint4 v0 = src[0], v1 = src[1];
+      const uint32_t x[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = s_lut[(x[i >> 2] >> (8 * (i & 3))) & 255u];
+        if (base + i < qn && c < a.nalpha) dst[c * pstride] |= 1u << i;
+      }
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < 32 && base + i < qn; ++i) {
+        const int c = s_lut[qrow[base + i]];
+        if (c < a.nalpha) dst[c * pstride] |= 1u << i;
+      }
+    }
+  }
+  __syncthreads();
+
+  const int hw = (qlen - 1) >> 5;
+  const uint32_t hb = (uint32_t)((qlen - 1) & 31);
+  const int owner = qlen > 0 ? hw / WL : 0;   // the lane holding word hw
+  uint32_t pv[WL], mv[WL];
+#pragma unroll
+  for (int k = 0; k < WL; ++k) {
+    pv[k] = 0xFFFFFFFFu;
+    mv[k] = 0u;
+  }
+  int score = qlen;
+  int res = a.mode == 0 ? (tlen == 0 ? qlen : kBig) : qlen;
+  const int hin0 = a.mode == 2 ? 0 : 1;
+  int hin = hin0;
+  const int tmax = s_tmax;
+  const int nsteps = tmax ? tmax + GL - 1 : 0;
+  const int nchunks = (nsteps + kChunk - 1) / kChunk;
+  const int tchunks = (tmax + kChunk - 1) / kChunk;
+  const uint8_t* trow =
+      reinterpret_cast<const uint8_t*>(ring) + p * 4 * kRowWords;
+  if (tchunks) stage_targets(a, ring, b0, np, 0);
+  cp_async_commit();
+  for (int kc = 0; kc < nchunks; ++kc) {
+    // steps of chunk kc read columns of chunks kc - 1 and kc: a ring of
+    // four buffers leaves chunk kc + 1 free to arrive meanwhile
+    if (kc + 1 < tchunks)
+      stage_targets(a, ring + ((kc + 1) & 3) * P * kRowWords, b0, np,
+                    (kc + 1) * kChunk);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const int s1 = min(nsteps, (kc + 1) * kChunk);
+#pragma unroll 1
+    for (int s = kc * kChunk; s < s1; ++s) {
+      const int j = s - l;
+      int hout = 0;
+      if (j >= 0 && j < tl) {
+        const int c = min(
+            (int)s_lut[trow[((j >> 6) & 3) * P * 4 * kRowWords + (j & 63)]],
+            a.nalpha);
+        uint32_t eq[WL];
+#pragma unroll
+        for (int k = 0; k < WL; ++k) eq[k] = peq[c * pstride + k * GL];
+        int delta = 0;
+        hout = column<WL>(eq, pv, mv, hin, l * WL, hw, hb, delta);
+        if (l == owner) {
+          score += delta;
+          track(a.mode, j, tlen, score, res);
+        }
+      }
+      hin = __shfl_up_sync(0xFFFFFFFFu, hout, 1, GL);
+      if (l == 0) hin = hin0;
+    }
+  }
+  if (live && l == owner)
+    a.out[b] = qlen <= 0 ? (a.mode == 0 ? tlen : 0) : res;
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, const Args& a, int pairs, int threads, int smem,
+           cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(a.B + pairs - 1) / pairs, threads, smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (B, qstride) uint8 query bytes; tT: (N, B) uint8 target bytes,
-// column-major; lut: 256 byte -> letter code; W: words per query, a
-// power of two in 1..128 with 32 * W >= qstride. Returns cudaError_t.
-extern "C" int myers_launch(const void* q, int qstride, const void* qlens,
-                            const void* tT, const void* tlens,
-                            const void* lut, int B, int mode, int W,
+// q: (B, M) uint8 query bytes; t: (B, N) uint8 target bytes, row-major;
+// lut: 256 byte -> letter code, the batch's letters coded 0..nalpha-1.
+// W: words per query, a power of two in 1..128 with 32 * W >= M. lanes,
+// threads and smem as ops/myers_cuda.py launch_geometry gives them: lanes
+// 1 (thread layout) for W <= 2, min(W, 32) (lanes layout) above. Returns
+// cudaError_t.
+extern "C" int myers_launch(const void* q, int M, const void* qlens,
+                            const void* t, int N, const void* tlens,
+                            const void* lut, int nalpha, int B, int mode,
+                            int W, int lanes, int threads, int smem,
                             void* out, void* stream) {
   if (B <= 0) return 0;
-  auto qp = static_cast<const uint8_t*>(q);
-  auto qlp = static_cast<const int32_t*>(qlens);
-  auto tp = static_cast<const uint8_t*>(tT);
-  auto tlp = static_cast<const int32_t*>(tlens);
-  auto lp = static_cast<const uint8_t*>(lut);
-  auto op = static_cast<int32_t*>(out);
+  Args a;
+  a.q = static_cast<const uint8_t*>(q);
+  a.qlens = static_cast<const int32_t*>(qlens);
+  a.t = static_cast<const uint8_t*>(t);
+  a.tlens = static_cast<const int32_t*>(tlens);
+  a.lut = static_cast<const uint8_t*>(lut);
+  a.out = static_cast<int32_t*>(out);
+  a.B = B;
+  a.M = M;
+  a.N = N;
+  a.mode = mode;
+  a.nalpha = nalpha;
+  a.qvec = ((uintptr_t)q % 16 == 0) && (M % 32 == 0);
+  a.tvec = ((uintptr_t)t % 4 == 0) && (N % 4 == 0);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (W) {
-    case 1: launch<1>(qp, qstride, qlp, tp, tlp, lp, B, mode, op, st); break;
-    case 2: launch<2>(qp, qstride, qlp, tp, tlp, lp, B, mode, op, st); break;
-    case 4: launch<4>(qp, qstride, qlp, tp, tlp, lp, B, mode, op, st); break;
-    case 8: launch<8>(qp, qstride, qlp, tp, tlp, lp, B, mode, op, st); break;
-    case 16: launch<16>(qp, qstride, qlp, tp, tlp, lp, B, mode, op, st); break;
-    case 32: launch<32>(qp, qstride, qlp, tp, tlp, lp, B, mode, op, st); break;
-    case 64: launch<64>(qp, qstride, qlp, tp, tlp, lp, B, mode, op, st); break;
-    case 128: launch<128>(qp, qstride, qlp, tp, tlp, lp, B, mode, op, st); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > 32 * W || N < 0 || nalpha < 0 || nalpha > kMaxAlpha ||
+      mode < 0 || mode > 2 || threads < 32 || threads > 128 || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  const int rows = 4 * kRowWords;   // bytes of a staged target row
+  if (W <= 2) {                     // thread layout
+    const int qs = ((M + 3) / 4) | 1;
+    const int need = 4 * (nalpha + 1) * W * threads + 2 * threads * rows;
+    if (lanes != 1 || smem < need || 4 * qs > 2 * rows)
+      return (int)cudaErrorInvalidValue;
+    const int n = threads;
+    if (W == 1) return launch(myers_thread_kernel<1>, a, n, n, smem, st);
+    return launch(myers_thread_kernel<2>, a, n, n, smem, st);
   }
-  return (int)cudaGetLastError();
+  if (lanes != (W < 32 ? W : 32) || threads % lanes)
+    return (int)cudaErrorInvalidValue;
+  const int n = threads, pairs = threads / lanes;
+  if (smem < 4 * (nalpha + 1) * W * pairs + 4 * pairs * rows)
+    return (int)cudaErrorInvalidValue;
+  switch (W) {
+    case 4: return launch(myers_lanes_kernel<4>, a, pairs, n, smem, st);
+    case 8: return launch(myers_lanes_kernel<8>, a, pairs, n, smem, st);
+    case 16: return launch(myers_lanes_kernel<16>, a, pairs, n, smem, st);
+    case 32: return launch(myers_lanes_kernel<32>, a, pairs, n, smem, st);
+    case 64: return launch(myers_lanes_kernel<64>, a, pairs, n, smem, st);
+    case 128: return launch(myers_lanes_kernel<128>, a, pairs, n, smem, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,8 @@
 Each source is compiled at first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into a
 shared library with a plain C interface under ``build/kernels/`` at
-the repository root, named by a hash of the source, and bound with
+the repository root, named by a hash of the source and of the headers
+beside it (csrc/*.cuh), and bound with
 ctypes. Every C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; ``check`` raises when that is not 0.
 Nothing here runs at import time: the CPU tests import every module
@@ -44,8 +45,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        key = hashlib.sha256(fh.read() + " ".join(FLAGS).encode())
+    key = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC)
+                                       if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as fh:
+            key.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:12]}.so")
 
 

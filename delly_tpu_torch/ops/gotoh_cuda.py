@@ -14,7 +14,9 @@ its recurrence counts 42 integer operations per cell (the exact score's
 division among them; the kernel divides by an f32 estimate and one
 integer correction), so it is bound by operations; it runs a warp per
 merge up to K = 256 and a block of warps with one barrier per DP row
-above. The walk is a chain of dependent byte loads per merge (latency).
+above. The walk is a chain of dependent byte loads per merge (latency):
+K2-tb runs one block per merge and reads the rows the walk can touch
+from shared-memory windows that ``tb_geometry`` sizes.
 
 Each wrapper launches its kernel on CUDA tensors (or raises) and runs
 its plain PyTorch version, in this module, on CPU tensors. All
@@ -36,6 +38,8 @@ from delly_tpu_torch.ops.gotoh import (
 from delly_tpu_torch.parallel import dispatch
 
 MAX_K = 4096    # largest padded dimension served by the kernel
+SMEM_MAX = 232_448          # dynamic shared memory one block may use (H100)
+TB_WINDOW_BYTES = 32_768    # K2-tb's window above K = 128
 NINF = -INF
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -182,7 +186,8 @@ def _lib(name: str):
                                      _I, _P, _P, _P]
         lib.gotoh_launch.restype = _I
     if name == "gotoh_tb" and lib.gotoh_tb_launch.argtypes is None:
-        lib.gotoh_tb_launch.argtypes = [_P, _P, _P, _I, _I, _P, _P, _P]
+        lib.gotoh_tb_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                        _P]
         lib.gotoh_tb_launch.restype = _I
     return lib
 
@@ -204,6 +209,16 @@ def _check_k(name: str, K: int) -> None:
     if K not in (128, 256, 512, 1024, 2048, MAX_K):
         raise ValueError(f"{name}: K={K} is not a power of two in "
                          f"128..{MAX_K}")
+
+
+def tb_geometry(K: int) -> tuple:
+    """K2-tb's shared-memory windows for tiles of K x K bytes: (rows per
+    window, windows in flight, dynamic shared memory bytes: the windows
+    and the walk's 2K codes). At K = 128 the whole tile (16 KB) is one
+    window, so ~13 walks share an SM; above it two windows of
+    TB_WINDOW_BYTES (whole rows) are in flight."""
+    rows, stages = (K, 1) if K * K <= 16_384 else (TB_WINDOW_BYTES // K, 2)
+    return rows, stages, stages * rows * K + 2 * K
 
 
 def gotoh_forward(prof, wc2, d2, mlen, nlen, hfree: bool, vfree: bool,
@@ -250,9 +265,13 @@ def gotoh_traceback(bits, mlen, nlen):
     lens = torch.empty(G, dtype=torch.int32, device=bits.device)
     if G == 0:
         return codes, lens
+    if bits.data_ptr() % 16:
+        raise ValueError("gotoh_tb: bits must be 16-byte aligned")
+    rows, stages, _smem = tb_geometry(K)
     rc = _lib("gotoh_tb").gotoh_tb_launch(
-        bits.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, K,
-        codes.data_ptr(), lens.data_ptr(), _build.stream_ptr(bits.device))
+        bits.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, K, rows,
+        stages, codes.data_ptr(), lens.data_ptr(),
+        _build.stream_ptr(bits.device))
     _build.check(rc, "gotoh_tb")
     dispatch.count("gotoh_tb")
     return codes, lens

@@ -49,6 +49,12 @@ def alphabet_lut(queries: np.ndarray, targets: np.ndarray):
     return lut
 
 
+def alphabet_size(lut) -> int:
+    """Letters an alphabet_lut codes (0 ... n - 1): the `nalpha` the
+    kernel needs Peq planes for. Takes the numpy table or a tensor."""
+    return int((lut < MAX_ALPHA).sum())
+
+
 def peq_planes(qcodes: torch.Tensor, qlens: torch.Tensor) -> torch.Tensor:
     """Peq bit planes (MAX_ALPHA + 1, w, B) int64 from (B, M) letter
     codes; bits at or above qlen are clear, and plane MAX_ALPHA is

@@ -1,10 +1,12 @@
 """K1 wrapper: batched Myers edit distance on the card.
 
 Replaces ``delly_tpu/ops/myers_pallas.py::batched_edit_distance_pallas``
-(kernel ``_make_pallas`` :247). The kernel is csrc/myers.cu, one thread
-per pair. On the H100 its floor is set about equally by integer
-operations (~17 per 32-query-row word and target column) and by the
-bytes of the pairs it reads once.
+(kernel ``_make_pallas`` :247). The kernel is csrc/myers.cu, in two
+layouts that ``launch_geometry`` chooses by the query's word count W:
+one thread per pair up to 64 query rows (W <= 2), a group of
+min(W, 32) lanes per pair above. On the H100 its floor is set by integer
+operations (~24 per 32-query-row word and target column); the bytes of
+the pairs it reads once weigh less.
 
 ``myers`` takes tensors: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs the plain version
@@ -21,10 +23,14 @@ import numpy as np
 import torch
 
 from delly_tpu_torch.ops import _build
-from delly_tpu_torch.ops.myers import alphabet_lut, myers_plain
+from delly_tpu_torch.ops.myers import (MAX_ALPHA, alphabet_lut,
+                                       alphabet_size, myers_plain)
 from delly_tpu_torch.parallel import dispatch
 
 MAX_WORDS = 128          # queries up to 4096 rows; longer ones row-scan
+LANES_FROM_WORDS = 4     # W >= 4: a group of lanes per pair
+ROW_BYTES = 68           # a staged chunk of 64 target columns, padded
+SMEM_MAX = 232_448       # dynamic shared memory one block may use (H100)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -32,8 +38,8 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.load("myers")
     if lib.myers_launch.argtypes is None:
-        lib.myers_launch.argtypes = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P,
-                                     _P]
+        lib.myers_launch.argtypes = [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _I, _P, _P]
         lib.myers_launch.restype = _I
     return lib
 
@@ -45,6 +51,26 @@ def words_bucket(m: int) -> int:
     while w < need:
         w *= 2
     return w
+
+
+def launch_geometry(W: int, nalpha: int = MAX_ALPHA) -> dict:
+    """K1's launch for queries of W words and a batch of `nalpha`
+    letters: the layout ("thread": a thread per pair, W <= 2; "lanes": a
+    group of `lanes` = min(W, 32) lanes per pair, each holding
+    `words_per_lane` consecutive words), threads and pairs per block, the
+    staged target chunks in the ring, and the dynamic shared memory: the
+    Peq planes (nalpha + 1 of W words per pair, the last one empty) and
+    the ring of padded target rows."""
+    if W < LANES_FROM_WORDS:
+        lanes, threads, buffers = 1, 128, 2
+    else:
+        lanes, buffers = min(W, 32), 4
+        threads = 128 if W <= 16 else 32
+    pairs = threads // lanes
+    smem = 4 * (nalpha + 1) * W * pairs + buffers * pairs * ROW_BYTES
+    return {"layout": "thread" if lanes == 1 else "lanes", "lanes": lanes,
+            "words_per_lane": W // lanes, "threads": threads,
+            "pairs": pairs, "buffers": buffers, "smem": smem}
 
 
 def _check(q, qlens, t, tlens, lut):
@@ -71,12 +97,21 @@ def _check(q, qlens, t, tlens, lut):
 
 
 def myers(q: torch.Tensor, qlens: torch.Tensor, t: torch.Tensor,
-          tlens: torch.Tensor, lut: torch.Tensor, mode: int) -> torch.Tensor:
-    """(B,) int32 distances of q (B, M) uint8 vs t (B, N) uint8."""
+          tlens: torch.Tensor, lut: torch.Tensor, mode: int,
+          nalpha: int = MAX_ALPHA) -> torch.Tensor:
+    """(B,) int32 distances of q (B, M) uint8 vs t (B, N) uint8. The
+    kernel builds Peq planes for letter codes below `nalpha` only, so it
+    must be at least alphabet_size(lut), which callers take it from (the
+    CPU path checks it; the card's would cost a copy to the host)."""
     _check(q, qlens, t, tlens, lut)
     if mode not in (0, 1, 2):
         raise ValueError(f"myers: mode {mode}")
+    if not 0 <= nalpha <= MAX_ALPHA:
+        raise ValueError(f"myers: nalpha {nalpha}")
     if q.device.type == "cpu":
+        if nalpha < alphabet_size(lut):
+            raise ValueError(f"myers: nalpha {nalpha} is below the "
+                             f"{alphabet_size(lut)} letters of lut")
         return myers_plain(q, qlens, t, tlens, lut, mode)
     if q.device.type != "cuda":
         raise ValueError(f"myers: unsupported device {q.device}")
@@ -84,11 +119,13 @@ def myers(q: torch.Tensor, qlens: torch.Tensor, t: torch.Tensor,
     out = torch.empty(b, dtype=torch.int32, device=q.device)
     if b == 0:
         return out
-    tT = t.T.contiguous()
+    w = words_bucket(m)
+    geo = launch_geometry(w, nalpha)
     rc = _lib().myers_launch(q.data_ptr(), m, qlens.data_ptr(),
-                             tT.data_ptr(), tlens.data_ptr(), lut.data_ptr(),
-                             b, mode, words_bucket(m), out.data_ptr(),
-                             _build.stream_ptr(q.device))
+                             t.data_ptr(), t.shape[1], tlens.data_ptr(),
+                             lut.data_ptr(), nalpha, b, mode, w,
+                             geo["lanes"], geo["threads"], geo["smem"],
+                             out.data_ptr(), _build.stream_ptr(q.device))
     _build.check(rc, "myers")
     dispatch.count("myers")
     return out
@@ -111,6 +148,6 @@ def batched_edit_distance_myers(queries, qlens, targets, tlens,
                 torch.as_tensor(np.asarray(qlens, dtype=np.int32), device=dev),
                 torch.from_numpy(t).to(dev),
                 torch.as_tensor(np.asarray(tlens, dtype=np.int32), device=dev),
-                torch.from_numpy(lut).to(dev), mode)
+                torch.from_numpy(lut).to(dev), mode, alphabet_size(lut))
     return out.cpu().numpy()
 

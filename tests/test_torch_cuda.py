@@ -18,7 +18,8 @@ import torch
 
 from delly_tpu_torch.ops import gotoh_banded_cuda, gotoh_cuda
 from delly_tpu_torch.ops.gotoh import DnaScore, gotoh, to_align
-from delly_tpu_torch.ops.myers import alphabet_lut, myers_plain
+from delly_tpu_torch.ops.myers import (alphabet_lut, alphabet_size,
+                                       myers_plain)
 from delly_tpu_torch.ops.myers_cuda import myers
 from delly_tpu_torch.parallel import dispatch
 from torch_card import card  # noqa: F401
@@ -49,6 +50,40 @@ def test_myers_kernel_matches_plain(card, m, n, nalpha):
         torch.cuda.synchronize()
         assert dispatch.snapshot()["myers"] == 1
         assert torch.equal(got.cpu(), want)
+
+
+K1_QLENS = [0, 1, 31, 32, 33, 64, 65, 128, 129, 2048, 4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nalpha", [1, 5, 16])
+@pytest.mark.parametrize("qlen", K1_QLENS)
+def test_myers_layouts_match_plain(card, qlen, nalpha):
+    """Both layouts of csrc/myers.cu (a thread per pair up to 64 rows, a
+    lane group above) at their edges: queries of exactly qlen rows beside
+    ragged shorter ones, in 131 pairs (no multiple of a block's pairs),
+    targets of 0, 1 and N columns, row-major with N = 150 (staged byte
+    by byte) and 256 (4-byte copies), all three modes."""
+    rng = np.random.default_rng(qlen * 17 + nalpha)
+    letters = np.frombuffer(b"ACGTNRYKMSWBDHVX", dtype=np.uint8)[:nalpha]
+    b, m = 131, max(qlen, 1)
+    for n in (150, 256):
+        q = letters[rng.integers(0, nalpha, size=(b, m))]
+        t = letters[rng.integers(0, nalpha, size=(b, n))]
+        t[0, :nalpha] = letters
+        ql = np.full(b, qlen, dtype=np.int32)
+        ql[1::7] = rng.integers(0, qlen + 1, size=len(ql[1::7]))
+        tl = np.resize(np.array([0, 1, n], dtype=np.int32), b)
+        tl[3::5] = rng.integers(0, n + 1, size=len(tl[3::5]))
+        lut = alphabet_lut(q, t)
+        assert alphabet_size(lut) == nalpha
+        args = [torch.from_numpy(x) for x in (q, ql, t, tl, lut)]
+        for mode in (0, 1, 2):
+            want = myers_plain(*args, mode)
+            got = myers(*(x.to(card) for x in args), mode,
+                        alphabet_size(lut))
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (n, mode)
 
 
 def _rand_seq(rng, lo, hi):
@@ -167,6 +202,36 @@ def test_gotoh_kernel_edges_match_plain(card, ac, kind):
     nlen 1, and deep profiles near the gate (300 x 400 rows: 300 * 400 *
     125 < 2^24)."""
     _assert_gotoh(card, *EDGE_CASES[kind](), ac)
+
+
+def _tb_edge_jobs(K, seed):
+    """mlen and nlen each 1, 2 and K (walks that run along row 0 or
+    column 0 from the start, and the whole tile), and a long merge."""
+    rng = random.Random(seed)
+    sizes = (1, 2, K)
+    jobs = [(to_align(_rand_seq(rng, a, a)), to_align(_rand_seq(rng, c, c)))
+            for a in sizes for c in sizes]
+    base = _rand_seq(rng, K - K // 8, K - K // 8)
+    jobs.append((to_align(_mutate(rng, base)), to_align(_mutate(rng, base))))
+    return _pack(jobs, K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac", ACS)
+@pytest.mark.parametrize("K", [128, 256, 512, 1024, 2048, 4096])
+def test_gotoh_tb_edges_match_plain(card, ac, K):
+    """K2-tb at every bucket (one window at K = 128, two above) with
+    mlen, nlen in {1, 2, K}."""
+    _assert_gotoh(card, *_tb_edge_jobs(K, K + 7), ac)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,n_jobs", [(128, 2000), (256, 450)])
+def test_gotoh_tb_more_merges_than_a_wave(card, K, n_jobs):
+    """More walks than the SMs hold at once (about 13 per SM at K = 128,
+    3 at K = 256)."""
+    _assert_gotoh(card, *_gotoh_case(K + n_jobs, n_jobs, K // 2,
+                                     K * 3 // 4, 1, K), (True, True))
 
 
 def _banded_case(seed, n_jobs, lo, hi):

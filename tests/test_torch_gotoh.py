@@ -208,3 +208,21 @@ def test_profile_score_division_packed_deep():
         want = np.where(num < 0, -q, q)
         for est in _estimates(num, den):
             np.testing.assert_array_equal(_score_twin(num, den, est), want)
+
+
+@pytest.mark.parametrize("K", [128, 256, 512, 1024, 2048, 4096])
+def test_tb_geometry(K):
+    """K2-tb's shared-memory windows as the launch takes them: rows per
+    window a power of two, so window w holds rows w * rows ... and every
+    row of the tile falls in exactly one; windows of whole rows in
+    16-byte multiples (cp.async.bulk sizes); the shared memory (windows
+    and the walk's 2K codes) fits; at K = 128 the tile is one window of
+    at most 16 KB, above it two windows of TB_WINDOW_BYTES."""
+    rows, stages, smem = gotoh_cuda.tb_geometry(K)
+    assert smem == stages * rows * K + 2 * K <= gotoh_cuda.SMEM_MAX
+    assert rows * K % 16 == 0 and rows & (rows - 1) == 0 and K % rows == 0
+    assert 1 <= stages <= K // rows
+    if K == 128:
+        assert (rows, stages) == (K, 1) and rows * K <= 16_384
+    else:
+        assert stages == 2 and rows * K == gotoh_cuda.TB_WINDOW_BYTES

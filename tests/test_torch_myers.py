@@ -15,7 +15,8 @@ from delly_tpu.ops import edist as jedist
 from delly_tpu.ops.myers import batched_edit_distance_myers as jax_myers
 from delly_tpu.ops.myers_pallas import batched_edit_distance_pallas
 from delly_tpu_torch.ops import edist, myers_cuda
-from delly_tpu_torch.ops.myers import alphabet_lut, myers_plain
+from delly_tpu_torch.ops.myers import (alphabet_lut, alphabet_size,
+                                       myers_plain)
 from delly_tpu_torch.parallel import dispatch
 from torch_card import torch_cpu  # noqa: F401
 
@@ -106,3 +107,68 @@ def test_routes(torch_cpu):
         myers_cuda.myers(torch.from_numpy(q).int(), torch.from_numpy(ql),
                          torch.from_numpy(t), torch.from_numpy(tl),
                          torch.from_numpy(alphabet_lut(q, t)), 0)
+
+
+@pytest.mark.parametrize("nalpha", [1, 5, 16])
+def test_nalpha_from_alphabet_size(torch_cpu, nalpha):
+    """The kernel builds Peq planes for `nalpha` letters: alphabet_size
+    gives the batch's count, and the CPU path refuses one below it (the
+    card would read empty planes for the letters left out)."""
+    q, ql, t, tl = _case(nalpha, 8, 40, 50, nalpha)
+    lut = alphabet_lut(q, t)
+    assert alphabet_size(lut) == nalpha
+    assert alphabet_size(torch.from_numpy(lut)) == nalpha
+    args = [torch.from_numpy(x) for x in (q, ql, t, tl, lut)]
+    np.testing.assert_array_equal(
+        myers_cuda.myers(*args, 0, nalpha).numpy(),
+        _oracle(q, ql, t, tl, 0))
+    with pytest.raises(ValueError, match="nalpha"):
+        myers_cuda.myers(*args, 0, nalpha - 1)
+
+
+def _query_buckets():
+    """Every padded query width batched_pairs_distance makes
+    (ops/edist.py bucket_q): 32...512 by 32, then 1,024...4,096."""
+    return list(range(32, 513, 32)) + [1024, 2048, 4096]
+
+
+@pytest.mark.parametrize("m", _query_buckets())
+def test_launch_geometry(m):
+    """K1's host geometry at every query bucket and alphabet size: the
+    lanes cover all W words, a lane group is a power of two of at most
+    32 lanes that divides the block, queries of up to 64 rows take one
+    thread per pair, and the shared memory the kernel needs fits."""
+    w = myers_cuda.words_bucket(m)
+    for nalpha in range(1, 17):
+        geo = myers_cuda.launch_geometry(w, nalpha)
+        lanes = geo["lanes"]
+        assert lanes * geo["words_per_lane"] == w
+        assert lanes & (lanes - 1) == 0 and 1 <= lanes <= 32
+        assert geo["layout"] == ("thread" if m <= 64 else "lanes")
+        assert geo["threads"] % 32 == 0 and geo["threads"] <= 128
+        assert geo["pairs"] * lanes == geo["threads"]
+        planes = 4 * (nalpha + 1) * w * geo["pairs"]
+        ring = geo["buffers"] * geo["pairs"] * myers_cuda.ROW_BYTES
+        assert geo["smem"] == planes + ring <= myers_cuda.SMEM_MAX
+        if lanes == 1:   # the query rows are staged in the target ring
+            assert geo["pairs"] * 4 * (((m + 3) // 4) | 1) <= ring
+
+
+@pytest.mark.parametrize("nalpha", [1, 16])
+@pytest.mark.parametrize("m", [64, 65, 128, 129])
+def test_layout_boundaries_match_jax(torch_cpu, m, nalpha):
+    """The plain version at the layout boundaries of the kernel (64/65
+    rows: thread -> lanes; 128/129: 4 -> 8 words) with one and sixteen
+    letters, against the JAX package, the host oracle and the Pallas
+    kernel in interpret mode; queries of exactly m rows included."""
+    q, ql, t, tl = _case(m * 7 + nalpha, 12, m, 96, nalpha)
+    ql[:4] = [m, m - 1, 1, m]
+    for mode in (0, 1, 2):
+        got = myers_cuda.batched_edit_distance_myers(q, ql, t, tl, mode)
+        np.testing.assert_array_equal(
+            got, np.asarray(jax_myers(q, ql, t, tl, mode)))
+        np.testing.assert_array_equal(got, _oracle(q, ql, t, tl, mode))
+    np.testing.assert_array_equal(
+        myers_cuda.batched_edit_distance_myers(q, ql, t, tl, 1),
+        np.asarray(batched_edit_distance_pallas(q, ql, t, tl, 1,
+                                                interpret=True)))
