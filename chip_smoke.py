@@ -20,9 +20,11 @@
    cluster would add per DP row).
 2. Holds K1 and K2/K2-tb against their plain PyTorch versions on the
    same inputs, made from numpy.random.default_rng(seed), at the shapes
-   of the sr main path and beyond (K1 at queries of 64 to 4,096 rows,
-   K2 at every K bucket in all four end-gap configs). Tolerance: exact
-   equality (integer and byte outputs). Times kernel and plain version
+   of the sr and lr main paths and beyond (K1 at queries of 64 to 8,192
+   rows: 1,200 pairs of 8,192 x 2,048 and 256 of 8,192 x 8,400 at the
+   widest launch, and queries of 12,300 and 16,384 rows in strips of
+   8,192; K2 at every K bucket in all four end-gap configs). Tolerance:
+   exact equality (integer and byte outputs). Times kernel and plain version
    with CUDA events at the main shapes, K1 at every case and K2 and
    K2-tb at each bucket, and K1 and K2-tb beside that replayed from
    a CUDA graph (the kernels alone: at ~0.01-0.06 ms the wrapper's host
@@ -38,8 +40,25 @@
    on long split reads with 4 reads per DEL (2 DELs), where the profile
    merges wider than 4,096 columns take the host full DP, and prints the
    share of split-read assembly spent there.
-4. Starts the same four commands with DELLY_TPU_TORCH_DEVICE=cpu
-   (together, one torch thread each, with their stage profiles) in the
+4. Generates the lr datasets with the port's copy of the generators (in
+   a worker process, started after the probes, beside phases 2 and 3)
+   and runs `lr` on the card on each: the five families of
+   make_lr_sv_dataset (checked at +-5 bp), the noisy ONT-like genome
+   (8 x 1.5 Mb, ~13x of 4 kb reads with 5% substitutions and 5% 1 bp
+   indels; 16/16 at +-60 bp), deep long-read genotyping at bench.py's
+   size (2 x 2 Mb, 600 DELs, 60x; 600/600 at +-60 bp), then `lr -v` on
+   its sites (600 sites genotyped 0/1 or 1/1), and discovery and `-v`
+   on a smaller deep-lr dataset that the CPU runs repeat. Every lr run
+   must launch K1 and send no batch to the torch row-scan; each prints
+   its stage seconds and the seconds inside K1's batch wrapper, in the
+   reads' consensus, in its realignment and in the host needle. Every K1
+   launch of the two bench-size runs is recorded and held equal to the
+   plain version on the card, and the largest is timed. The row-scan,
+   which served queries wider than 4,096 rows before K1 did, is timed
+   once on one recorded 8,192-row consensus batch.
+5. Starts the same sr and lr commands (not the bench-size deep-lr ones)
+   with DELLY_TPU_TORCH_DEVICE=cpu (together, one torch thread each,
+   with their stage profiles) in the
    background, and meanwhile holds K3/K3-tb against their plain versions
    in all four end-gap configs at every band (512...4096) with M = 256,
    at every band with M = 16,384 (n = 1 included) and at m = 32,768;
@@ -52,7 +71,8 @@
    walk's steps x the chase probe's step). The plain versions' times of
    this phase are taken with the CPU runs going. Last, checks that every
    card VCF equals its CPU run's apart from ##fileDate.
-5. Prints the kernels line, then as the last line
+6. Prints the kernels line (K1's entry with its lr launches, pairs by
+   shape and largest launch), then as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}:
    the run uses one card, cuda:0.
 
@@ -79,6 +99,8 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 
 import numpy as np
 
@@ -314,11 +336,14 @@ def phase_build(details: dict) -> tuple:
     print(f"build: {wall:.1f}s wall for {len(secs) + 2} nvcc processes "
           f"({', '.join(f'{k} {v:.1f}s' for k, v in secs.items())}); "
           f"host library ready after {host['s']:.1f}s")
+    ptxas = {}
     for name in _build.SOURCES:
         for ln in _build.build_log.get(name, "").splitlines():
             if any(w in ln for w in ("registers", "spill", "Compiling entry",
                                      "Function properties")):
                 print(f"  ptxas[{name}]: {ln.strip()}")
+                ptxas.setdefault(name, []).append(ln.strip())
+    details["ptxas"] = ptxas
     details["build_s"] = {"wall": wall, "host_library": host["s"], **secs}
     return cubin, probe_lib
 
@@ -505,10 +530,10 @@ def _myers_batch(rng, b, m, n, nalpha, mode):
 
 
 def check_myers(dev, rng, details) -> dict:
-    """K1 against the plain version at the genotyping shape and at
-    queries of 512 to 4,096 rows (the lane groups' layout), each case
-    timed through the wrapper; the main shape's numbers for the kernels
-    line."""
+    """K1 against the plain version at the genotyping shape, at queries
+    of 512 to 8,192 rows (the lane groups' layout) and above (strips of
+    8,192 rows, one launch each), each case timed through the wrapper;
+    the main shape's numbers for the kernels line."""
     import torch
 
     from delly_tpu_torch.ops.myers import (alphabet_lut, alphabet_size,
@@ -522,7 +547,11 @@ def check_myers(dev, rng, details) -> dict:
              ("m=512 NW", 512, 512, 640, 4, 0),
              ("m=1024 NW", 256, 1024, 1100, 4, 0),
              ("m=2048 SHW", 128, 2048, 2100, 4, 1),
-             ("m=4096 NW", 64, 4096, 4200, 4, 0)]
+             ("m=4096 NW", 64, 4096, 4200, 4, 0),
+             ("m=8192 NW, lr consensus", 1200, 8192, 2048, 4, 0),
+             ("m=8192 NW, long targets", 256, 8192, 8400, 4, 0),
+             ("m=16384 NW, 2 strips", 256, 16384, 2048, 4, 0),
+             ("m=12300 HW, 2 strips", 128, 12300, 4096, 5, 2)]
     out = {}
     max_err = 0
     times = {}
@@ -540,26 +569,40 @@ def check_myers(dev, rng, details) -> dict:
         ms = cuda_ms(lambda: myers(*args, mode, na), reps=20)
         dev_ms = device_ms(lambda: myers(*args, mode, na))
         geo = launch_geometry(words_bucket(m), na)
+        strips = -(-m // (32 * geo["words"]))
+        bnd = myers_bound(q, ql, t, tl)
         print(f"K1 {label}: {b} pairs {m}x{n}: equal; {ms:.5f} ms through "
               f"the wrapper, {dev_ms:.5f} ms replayed ({geo['layout']}, "
-              f"{geo['lanes']} lanes a pair)")
+              f"{geo['lanes']} lanes a pair, {strips} launch(es)); bound "
+              f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']})")
         times[label] = {"pairs": b, "m": m, "n": n, "ms": ms,
                         "device_ms": dev_ms, "layout": geo["layout"],
-                        "lanes": geo["lanes"]}
+                        "lanes": geo["lanes"], "strips": strips,
+                        "bound_ms": bnd["bound_ms"],
+                        "bound_by": bnd["bound_by"]}
         if label.startswith("main"):
             plain = cuda_ms(lambda: myers_plain(*args, mode), reps=2)
-            words = (ql.astype(np.int64) + 31) // 32
-            ops = float((words * tl).sum() * MYERS_OPS_PER_WORD
-                        + tl.sum() * MYERS_OPS_PER_COLUMN)
-            nbytes = q.nbytes + t.nbytes + ql.nbytes + tl.nbytes + 256 + 4 * b
             out = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
                    "shapes": f"{b} pairs, "
-                   f"{m}x{n} uint8, HW", **bound(nbytes, ops)}
+                   f"{m}x{n} uint8, HW", **bnd}
     out["max_abs_err"] = max_err
     out["case_ms"] = {k: v["ms"] for k, v in times.items()}
     out["case_device_ms"] = {k: v["device_ms"] for k, v in times.items()}
+    out["case_bound_ms"] = {k: v["bound_ms"] for k, v in times.items()}
     details["k1_cases"] = times
     return out
+
+
+def myers_bound(q, ql, t, tl) -> dict:
+    """K1's bound for one batch (numpy inputs): the operations of each
+    pair's words and columns, and the bytes of the inputs read once and
+    the distances written once."""
+    words = (ql.astype(np.int64) + 31) // 32
+    cols = tl.astype(np.int64)
+    ops = float((words * cols).sum() * MYERS_OPS_PER_WORD
+                + cols.sum() * MYERS_OPS_PER_COLUMN)
+    # q and t bytes, the int32 qlens, tlens and distances, the letter table
+    return bound(q.nbytes + t.nbytes + 12 * len(q) + 256, ops)
 
 
 def _seq(prng, k):
@@ -852,8 +895,7 @@ def measure_banded(dev, launches, err, sass_loops, step_ns) -> tuple:
     tot = {"plain_ms": 0.0, "tb_plain_ms": 0.0, "rows": 0, "cells": 0,
            "in_bytes": 0, "steps": 0, "jobs": 0}
     shapes, alone, tb_alone, longest = [], [], [], 0
-    outs = []
-    for i, (fargs, kw) in enumerate(launches):
+    for i, (fargs, kw, out) in enumerate(launches):
         r = banded_vs_plain(dev, fargs, f"long-split launch {i}")
         err = max(err, r["err"], r["tb_err"])
         for k in tot:
@@ -861,15 +903,15 @@ def measure_banded(dev, launches, err, sass_loops, step_ns) -> tuple:
         longest = max(longest, r["longest_walk"])
         threads = r["B"] // 4           # K3 runs 4 slots per thread
         sass_ops += r["rows"] * threads * sass_loops[(4, threads)]
-        outs.append(banded_forward(*fargs, **kw))
         alone.append(cuda_ms(lambda: banded_forward(*fargs, **kw), reps=5))
         tb_alone.append(cuda_ms(lambda: banded_traceback(
-            outs[-1][1], fargs[2], fargs[3]), reps=5))
+            out[1], fargs[2], fargs[3]), reps=5))
         shapes.append(f"{r['jobs']}x(M={r['M']}, B={r['B']})")
     print(f"K3/K3-tb long-split launches ({', '.join(shapes)}): equal")
-    fwd = [lambda f=f, kw=kw: banded_forward(*f, **kw) for f, kw in launches]
+    fwd = [lambda f=f, kw=kw: banded_forward(*f, **kw)
+           for f, kw, _out in launches]
     tb = [lambda f=f, o=o: banded_traceback(o[1], f[2], f[3])
-          for (f, _kw), o in zip(launches, outs)]
+          for f, _kw, o in launches]
     ms = cuda_ms(lambda: run_concurrently(dev, fwd), reps=5)
     tb_ms = cuda_ms(lambda: run_concurrently(dev, tb), reps=5)
     desc = (f"{tot['jobs']} jobs in {len(launches)} launches at once: "
@@ -905,11 +947,12 @@ def measure_banded(dev, launches, err, sass_loops, step_ns) -> tuple:
 
 def recorder(record: list):
     """Stand-in maker that appends each call's (arguments, keyword
-    arguments) to `record`."""
+    arguments, result) to `record`."""
     def make(fn):
         def recorded(*args, **kwargs):
-            record.append((args, kwargs))
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            record.append((args, kwargs, out))
+            return out
         return recorded
     return make
 
@@ -977,7 +1020,7 @@ def run_card(argv, details, label, wraps=()):
     torch.cuda.synchronize()
     t1 = time.time()
     counts = dispatch.snapshot()
-    need(rc == 0, f"{label}: sr exited {rc}")
+    need(rc == 0, f"{label}: exited {rc}")
     stages = {}
     pts = [(t0, "startup")] + marks + [(t1, None)]
     for (ts, msg), (te, _nx) in zip(pts, pts[1:]):
@@ -992,15 +1035,22 @@ def run_card(argv, details, label, wraps=()):
     return counts, stages
 
 
-def svmix_score(vcf, truth):
+def vcf_calls(vcf) -> list:
+    """(SVTYPE, chrom, pos, ALT, GT) of each record."""
     calls = []
     with open(vcf) as fh:
         for ln in fh:
             if ln.startswith("#"):
                 continue
-            c = ln.split("\t")
-            svt = [f for f in c[7].split(";") if f.startswith("SVTYPE=")][0][7:]
-            calls.append((svt, c[0], int(c[1])))
+            c = ln.rstrip("\n").split("\t")
+            svt = [f for f in c[7].split(";")
+                   if f.startswith("SVTYPE=")][0][7:]
+            calls.append((svt, c[0], int(c[1]), c[4], c[9].split(":")[0]))
+    return calls
+
+
+def svmix_score(vcf, truth):
+    calls = [c[:3] for c in vcf_calls(vcf)]
     win = {"DEL": 100, "DUP": 150, "INS": 100, "INV": 400, "BND": 150}
 
     def match(t, svt, cc, cp):
@@ -1079,15 +1129,15 @@ def phase_e2e(work, details):
     print(f"long-split: recall {tp}/{nt}, precision {good}/{nc}")
     details["long_split"] = {"tp": tp, "truth": nt, "good": good,
                              "calls": nc, "k3_jobs": sum(
-                                 len(a[0]) for a, _kw in k3_launches)}
+                                 len(a[0]) for a, _kw, _o in k3_launches)}
     need(tp == nt == 24 and good == nc, "long-split truth check")
     return launches, k3_launches, cmds
 
 
 def start_cpu_runs(cmds: dict, p) -> list:
     """Starts the CPU runs (DELLY_TPU_TORCH_DEVICE=cpu, one torch thread
-    each, with their stage profiles): [(label, process, profile, t0,
-    end times)]. They write their VCFs beside the card's."""
+    each, with their stage profiles): [(label, process, profile, stderr
+    file, t0, end times)]. They write their VCFs beside the card's."""
     runs = []
     for label, argv in cmds.items():
         argv = [a.replace("{}", "cpu") if a.endswith(".{}.vcf") else a
@@ -1096,7 +1146,8 @@ def start_cpu_runs(cmds: dict, p) -> list:
         prof = p(f"profile.{stem}.json")
         env = dict(os.environ, DELLY_TPU_TORCH_DEVICE="cpu",
                    DELLY_TPU_PROFILE=prof, OMP_NUM_THREADS="1")
-        err = open(p(f"stderr.{stem}.txt"), "w")
+        err_path = p(f"stderr.{stem}.txt")
+        err = open(err_path, "w")
         t0 = time.time()
         proc = subprocess.Popen(
             [sys.executable, "-m", "delly_tpu_torch.cli", *argv], cwd=REPO,
@@ -1105,19 +1156,19 @@ def start_cpu_runs(cmds: dict, p) -> list:
         ends = {}
         threading.Thread(target=lambda pr=proc, e=ends: e.setdefault(
             "t", (pr.wait(), time.time())[1]), daemon=True).start()
-        runs.append((label, proc, prof, t0, ends))
+        runs.append((label, proc, prof, err_path, t0, ends))
     return runs
 
 
-def finish_cpu_runs(runs: list, p, details) -> None:
+def finish_cpu_runs(runs: list, cmds: dict, details) -> None:
     """Waits for the CPU runs, prints their stage profiles and checks that
     every card VCF equals its CPU run's apart from ##fileDate."""
-    for label, proc, prof, t0, ends in runs:
+    for label, proc, prof, err_path, t0, ends in runs:
         rc = proc.wait()
         while "t" not in ends:
             time.sleep(0.01)
         wall = ends["t"] - t0
-        with open(p(f"stderr.{label.replace(' ', '_')}.txt")) as fh:
+        with open(err_path) as fh:
             err = fh.read()
         need(rc == 0, f"{label} on cpu exited {rc}: {err[-1500:]}")
         with open(prof) as fh:
@@ -1128,8 +1179,10 @@ def finish_cpu_runs(runs: list, p, details) -> None:
             print(f"  {k}: {v:.3f}s")
         details.setdefault("cpu_runs", {})[label] = {"process_wall_s": wall,
                                                      **stages}
-    for stem in ("svmix", "deepgeno", "regeno", "longsplit"):
-        a, b = vcf_body(p(f"{stem}.cuda.vcf")), vcf_body(p(f"{stem}.cpu.vcf"))
+    for argv in cmds.values():
+        out = argv[argv.index("-o") + 1]
+        a, b = (vcf_body(out.replace("{}", dv)) for dv in ("cuda", "cpu"))
+        stem = os.path.basename(out).split(".")[0]
         need(a == b, f"{stem}: card and cpu VCFs differ")
         print(f"{stem}: card VCF == cpu VCF ({len(a)} lines)")
 
@@ -1159,6 +1212,263 @@ def phase_host_dp(work, details) -> None:
          f"{label}: {counts['host_routes']} host routes, "
          f"{acc['host_full_dp']['calls']} host full-DP calls timed")
     print_msa_split(label, stages, acc, details)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the lr slice end to end
+# ---------------------------------------------------------------------------
+
+# deep long-read genotyping at bench.py:226-229's size, and the smaller
+# deep-lr dataset whose card VCFs are held to CPU runs
+DEEP_LR = dict(n_contigs=2, contig_len=2_000_000, dels_per_contig=300,
+               coverage=60)
+DEEP_LR_CPU = dict(n_contigs=1, contig_len=500_000, dels_per_contig=40,
+                   coverage=45, name="deeplrs")
+# the lr datasets: (generator of delly_tpu_torch.testing.synth, arguments)
+LR_DATASETS = {
+    "lr_sv": ("make_lr_sv_dataset", {}),
+    "noisy": ("make_lr_genome_dataset", dict(
+        n_contigs=8, contig_len=1_500_000, reads_per_contig=5_000,
+        error_rate=0.05, indel_error_rate=0.05, name="noisy")),
+    "deep-lr": ("make_deep_lr_dataset", DEEP_LR),
+    "deep-lr small": ("make_deep_lr_dataset", DEEP_LR_CPU),
+}
+def make_lr_datasets(work) -> dict:
+    """The LR_DATASETS under `work`, by name: (bam, fasta, truth), and
+    the seconds they took."""
+    from delly_tpu_torch.testing import synth
+
+    t0 = time.time()
+    out = {k: getattr(synth, gen)(work, **kw)
+           for k, (gen, kw) in LR_DATASETS.items()}
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def start_lr_datasets(work):
+    """Generates the lr datasets in a worker process (about 45 s of host
+    work, mostly the noisy genome's indels), which runs beside the kernel
+    checks and the sr runs. Returns (pool, future); the pool is spawned,
+    not forked, since this process holds the card."""
+    pool = ProcessPoolExecutor(1, mp_context=get_context("spawn"))
+    return pool, pool.submit(make_lr_datasets, work)
+
+
+def lr_sv_check(calls) -> bool:
+    """The five families of make_lr_sv_dataset, each at +-5 bp, as
+    tests/test_lr.py:278-305 checks them."""
+    if {c[0] for c in calls} != {"DEL", "INS", "DUP", "INV", "BND"}:
+        return False
+    for typ, chrom, pos in [("DEL", "ctgA", 20000), ("INS", "ctgA", 45000),
+                            ("DUP", "ctgA", 70000), ("INV", "ctgA", 100000)]:
+        if not any(s == typ and cc == chrom and abs(cp - pos) <= 5
+                   for s, cc, cp, _a, _g in calls):
+            return False
+    bnd = [c for c in calls if c[0] == "BND"][0]
+    return bnd[1] == "ctgB" and abs(bnd[2] - 30000) <= 5 \
+        and "ctgA:125000" in bnd[3]
+
+
+def lr_score(calls, truth, win=60) -> tuple:
+    """(truth called, truth, calls that match a truth, calls): a call
+    matches (chrom, kind, pos, length) of the truth at |pos| < win."""
+    def match(t, c):
+        return c[0] == t[1] and c[1] == t[0] and abs(c[2] - t[2]) < win
+    tp = sum(any(match(t, c) for c in calls) for t in truth)
+    good = sum(any(match(t, c) for t in truth) for c in calls)
+    return tp, len(truth), good, len(calls)
+
+
+def lr_timers():
+    """(acc, wraps) that time, in one lr run, K1's batch wrapper (host
+    copies, launch and the copy back), and the parts of split-read
+    assembly: the consensus of each SV's reads (msaEdlib, or msaWfa for
+    insertions) and its realignment to the reference (align_consensus,
+    which holds the host needle of cons_ref_alignment and K1 calls)."""
+    from delly_tpu_torch.models import assemble, refine
+    from delly_tpu_torch.ops import myers_cuda
+
+    acc = {k: {"s": 0.0, "calls": 0}
+           for k in ("k1_wrapper", "consensus", "align_consensus",
+                     "host_needle")}
+    wraps = [(myers_cuda, "batched_edit_distance_myers",
+              timer(acc["k1_wrapper"])),
+             (assemble, "msa_edlib", timer(acc["consensus"])),
+             (assemble, "msa_wfa", timer(acc["consensus"])),
+             (assemble, "align_consensus", timer(acc["align_consensus"])),
+             (refine, "cons_ref_alignment", timer(acc["host_needle"]))]
+    return acc, wraps
+
+
+def check_recorded_k1(dev, record, label) -> dict:
+    """Holds every K1 launch recorded in a run equal to myers_plain on
+    the card: launches of one (M, N, mode, letter table) are joined, at
+    most 65,536 pairs at a time, since the plain version is the same
+    function of each pair. Then times the launch with the most work
+    through the wrapper and replayed from a CUDA graph. Returns the
+    launches, their pairs by (M, N), and the largest's numbers."""
+    import torch
+
+    from delly_tpu_torch.ops.myers import myers_plain
+    from delly_tpu_torch.ops.myers_cuda import myers
+
+    groups, shapes = {}, {}
+    for args, _kw, out in record:
+        q, ql, t, tl, lut, mode = args[:6]
+        key = (q.shape[1], t.shape[1], mode, bytes(lut.cpu().numpy()))
+        groups.setdefault(key, []).append((q, ql, t, tl, out))
+        shp = f"{q.shape[1]}x{t.shape[1]}"
+        shapes[shp] = shapes.get(shp, 0) + q.shape[0]
+    pairs = 0
+    for (_m, _n, mode, lut), items in groups.items():
+        lut_t = torch.frombuffer(bytearray(lut), dtype=torch.uint8).to(dev)
+        k = 0
+        while k < len(items):
+            chunk, n = [], 0
+            while k < len(items) and (not chunk or n + len(items[k][0])
+                                      <= 65_536):
+                chunk.append(items[k])
+                n += len(items[k][0])
+                k += 1
+            cat = [torch.cat([c[i] for c in chunk]) for i in range(5)]
+            want = myers_plain(*cat[:4], lut_t, mode)
+            need(torch.equal(cat[4], want),
+                 f"{label}: a recorded K1 launch != plain")
+            pairs += n
+    work = [int((((a[1].long() + 31) // 32) * a[3].long()).sum())
+            for a, _kw, _o in record]
+    args = record[int(np.argmax(work))][0]
+    q, ql, t, tl = (x.cpu().numpy() for x in args[:4])
+    ms = cuda_ms(lambda: myers(*args), reps=5)
+    dev_ms = device_ms(lambda: myers(*args), reps=5)
+    _o, plain_ms = timed(lambda: myers_plain(*args[:6]))
+    largest = {"shape": f"{len(q)} pairs, {q.shape[1]}x{t.shape[1]} uint8, "
+                        f"mode {args[5]}",
+               "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+               **myers_bound(q, ql, t, tl)}
+    print(f"{label}: {len(record)} K1 launches, {pairs} pairs, each equal to "
+          f"the plain version; pairs by query x target width {shapes}; the "
+          f"largest, {largest['shape']}: {ms:.4f} ms through the wrapper, "
+          f"{dev_ms:.4f} ms replayed, plain {plain_ms:.1f} ms, bound "
+          f"{largest['bound_ms']:.4f} ms ({largest['bound_by']})")
+    return {"launches": len(record), "pairs": pairs, "pairs_by_shape": shapes,
+            "largest": largest}
+
+
+def rowscan_seconds(dev, calls) -> dict:
+    """The torch row-scan, which served queries wider than 4,096 rows
+    before K1 did, timed once on the card on the inputs of the first
+    recorded `batched_edit_distance` call with such queries (an
+    _all_pairs_nw batch of 8,192-row queries), beside K1's route on the
+    same inputs; both equal."""
+    from delly_tpu_torch.ops import edist
+    from delly_tpu_torch.ops.myers_cuda import batched_edit_distance_myers
+
+    calls = [c for c in calls if c[0][0].shape[1] > 4096]
+    need(calls, "lr lr_sv: no batch of queries wider than 4,096 rows")
+    (q, ql, t, tl, mode), _kw, _out = calls[0]
+    t0 = time.time()
+    got_rs = edist.batched_edit_distance_rowscan(q, ql, t, tl, mode)
+    rs_s = time.time() - t0
+    t0 = time.time()
+    got_k1 = batched_edit_distance_myers(q, ql, t, tl, mode)
+    k1_s = time.time() - t0
+    need(np.array_equal(got_rs, got_k1), "row-scan != K1 on 8,192-row pairs")
+    shape = f"{len(q)} pairs, {q.shape[1]}x{t.shape[1]}, mode {mode}"
+    print(f"row-scan on one 8,192-row consensus batch ({shape}): {rs_s:.3f} s "
+          f"on the card; K1's wrapper {k1_s:.4f} s; equal")
+    return {"shape": shape, "rowscan_s": rs_s, "k1_wrapper_s": k1_s}
+
+
+def phase_lr(dev, work, details, gen) -> tuple:
+    """`lr` on the card: the five families of make_lr_sv_dataset, the
+    noisy ONT-like genome, deep long-read genotyping at bench.py's size
+    (discovery, then `lr -v` on its sites) and the smaller deep-lr
+    dataset that the CPU runs repeat. Checks the truth of each, K1's
+    launches and no row-scan batch in every run, holds every K1 launch
+    of the two bench-size runs equal to the plain version and times the
+    largest, and times the row-scan on one 8,192-row consensus batch.
+    Returns (launches by run, the CPU runs' commands, K1's lr numbers).
+    `gen` is the future of start_lr_datasets."""
+    from delly_tpu_torch.ops import edist, myers_cuda
+
+    t0 = time.time()
+    made = gen.result()
+    sv_bam, sv_fa, _sv_truth = made["lr_sv"]
+    nz_bam, nz_fa, nz_truth = made["noisy"]
+    dl_bam, dl_fa, dl_truth = made["deep-lr"]
+    ds_bam, ds_fa, ds_truth = made["deep-lr small"]
+    details["lr_gen_s"] = made["seconds"]
+    print(f"datasets: lr_sv, noisy, deep-lr and deep-lr (small) generated in "
+          f"{made['seconds']:.1f}s beside the earlier phases; waited "
+          f"{time.time() - t0:.1f}s for them")
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+    cmds = {
+        "lr lr_sv": ["lr", "-g", sv_fa, "-o", p("lrsv.{}.vcf"), sv_bam],
+        "lr noisy": ["lr", "-g", nz_fa, "-o", p("noisy.{}.vcf"), nz_bam],
+        "lr deep-lr": ["lr", "-g", dl_fa, "-o", p("deeplr.{}.vcf"), dl_bam],
+        "lr -v deep-lr": ["lr", "-v", p("deeplr.cuda.vcf"), "-g", dl_fa, "-o",
+                          p("deeplr_regeno.{}.vcf"), dl_bam],
+        "lr deep-lr small": ["lr", "-g", ds_fa, "-o", p("deeplrs.{}.vcf"),
+                             ds_bam],
+        "lr -v deep-lr small": ["lr", "-v", p("deeplrs.cuda.vcf"), "-g",
+                                ds_fa, "-o", p("deeplrs_regeno.{}.vcf"),
+                                ds_bam],
+    }
+    launches, split, k1_runs = {}, {}, {}
+    wide = []
+    for label, argv in cmds.items():
+        argv = [a.replace("{}", "cuda") if a.endswith(".{}.vcf") else a
+                for a in argv]
+        acc, wraps = lr_timers()
+        record = []
+        if label in ("lr deep-lr", "lr -v deep-lr"):
+            wraps.append((myers_cuda, "myers", recorder(record)))
+        if label == "lr lr_sv":
+            wraps.append((edist, "batched_edit_distance", recorder(wide)))
+        launches[label], _stages = run_card(argv, details, label, wraps)
+        split[label] = acc
+        print(f"{label}: " + ", ".join(f"{k} {v['s']:.3f}s in {v['calls']} "
+                                      f"calls" for k, v in acc.items()))
+        need(launches[label]["myers"] > 0, f"{label}: myers never launched")
+        need(launches[label]["rowscan"] == 0,
+             f"{label}: {launches[label]['rowscan']} row-scan batches")
+        if record:
+            k1_runs[label] = check_recorded_k1(dev, record, label)
+            del record[:]
+    details["lr_split_s"] = split
+    details["lr_k1_recorded"] = k1_runs
+    details["lr_rowscan"] = rowscan_seconds(dev, wide)
+
+    need(lr_sv_check(vcf_calls(p("lrsv.cuda.vcf"))), "lr_sv truth check")
+    print("lr_sv: DEL, INS, DUP, INV and BND called at +-5 bp")
+    checks = {}
+    for name, vcf, truth in (("noisy", "noisy.cuda.vcf", nz_truth),
+                             ("deep-lr", "deeplr.cuda.vcf", dl_truth),
+                             ("deep-lr small", "deeplrs.cuda.vcf", ds_truth)):
+        tp, nt, good, nc = lr_score(vcf_calls(p(vcf)), truth)
+        print(f"lr {name}: recall {tp}/{nt} at +-60 bp, {good} of {nc} calls "
+              f"match a truth")
+        checks[name] = {"tp": tp, "truth": nt, "good": good, "calls": nc}
+        need(tp == nt and good == nc, f"lr {name} truth check")
+    need(checks["noisy"]["truth"] == 16 and checks["deep-lr"]["truth"] == 600,
+         "lr truth sizes")
+    geno = vcf_calls(p("deeplr_regeno.cuda.vcf"))
+    alt = sum(c[4] in ("0/1", "1/1") for c in geno)
+    print(f"lr -v deep-lr: {alt} of {len(geno)} sites genotyped with an ALT "
+          f"allele")
+    checks["deep-lr -v"] = {"alt_genotyped": alt, "sites": len(geno)}
+    need(alt == len(geno) == 600, "lr -v deep-lr: sites not ALT-genotyped")
+    details["lr_truth"] = checks
+    cpu_cmds = {k: v for k, v in cmds.items()
+                if k not in ("lr deep-lr", "lr -v deep-lr")}
+    big = max(k1_runs.values(), key=lambda r: r["largest"]["ops"])["largest"]
+    k1_lr = {"lr_launches": {k: v["myers"] for k, v in launches.items()},
+             "lr_pairs_by_shape": {k: v["pairs_by_shape"]
+                                   for k, v in k1_runs.items()},
+             "lr_largest_launch": big,
+             "lr_rowscan_s_8192_rows": details["lr_rowscan"]["rowscan_s"]}
+    return launches, cpu_cmds, k1_lr
 
 
 # ---------------------------------------------------------------------------
@@ -1198,15 +1508,20 @@ def main() -> int:
     os.environ["DELLY_TPU_TORCH_DEVICE"] = "cuda"
     t0 = time.time()
     cpu_runs = []
+    lr_pool = None
     try:
         k3_count, probe_lib = phase_build(details)
         sass_loops = kernel_sass(details, k3_count)
         step_ns = phase_probes(dev, probe_lib, details)
+        lr_pool, lr_gen = start_lr_datasets(work)
         rng = np.random.default_rng(SEED)
         k1 = check_myers(dev, rng, details)
         k2, tb = check_gotoh(dev, rng, details, step_ns)
         launches, k3_launches, cmds = phase_e2e(work, details)
         phase_host_dp(work, details)
+        lr_launches, lr_cmds, k1_lr = phase_lr(dev, work, details, lr_gen)
+        launches.update(lr_launches)
+        cmds.update(lr_cmds)
         # the same commands on the host (the plain versions), all at once
         # in the background while the K3/K3-tb checks and timings run
         p = lambda name: os.path.join(work, name)  # noqa: E731
@@ -1214,8 +1529,10 @@ def main() -> int:
         err3 = check_banded(dev, rng, details)
         k3, k3tb = measure_banded(dev, k3_launches, err3, sass_loops,
                                   step_ns)
-        finish_cpu_runs(cpu_runs, p, details)
+        finish_cpu_runs(cpu_runs, cmds, details)
     finally:
+        if lr_pool is not None:
+            lr_pool.shutdown(cancel_futures=True)
         for run in cpu_runs:
             if run[1].poll() is None:
                 run[1].kill()
@@ -1229,7 +1546,7 @@ def main() -> int:
     kernels = []
     for name, src, rep, meas in (
             ("myers", "delly_tpu_torch/csrc/myers.cu",
-             "delly_tpu/ops/myers_pallas.py:247", k1),
+             "delly_tpu/ops/myers_pallas.py:247", {**k1, **k1_lr}),
             ("gotoh", "delly_tpu_torch/csrc/gotoh.cu",
              "delly_tpu/ops/gotoh_pallas.py:52", k2),
             ("gotoh_tb", "delly_tpu_torch/csrc/gotoh_tb.cu",
@@ -1250,7 +1567,7 @@ def main() -> int:
             "shapes": meas["shapes"],
             **{k: v for k, v in meas.items() if k.startswith(
                 ("row_loop", "launch_ms", "longest", "smem_step",
-                 "chain_floor", "case_", "device_ms"))}})
+                 "chain_floor", "case_", "device_ms", "lr_"))}})
     details["kernels"] = kernels
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:

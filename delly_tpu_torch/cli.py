@@ -1,12 +1,15 @@
 """Command-line interface of the PyTorch port.
 
-Reference: src/delly.cpp (dispatch). This slice serves the ``sr`` word
+Reference: src/delly.cpp (dispatch). The port serves the ``sr`` word
 (short-read SV discovery and genotyping, and re-genotyping with ``-v``)
-on the run's device (``DELLY_TPU_TORCH_DEVICE``, ``cuda`` by default).
-The other words of the JAX package's CLI are not ported yet and exit
-with status 1.
+and the ``lr`` word (long-read SV discovery and genotyping, with
+methylation, HP/PS phasing, ``-l`` alternate alignments and
+re-genotyping with ``-v``) on the run's device
+(``DELLY_TPU_TORCH_DEVICE``, ``cuda`` by default). The other words of
+the JAX package's CLI are not ported yet and exit with status 1.
 
     python -m delly_tpu_torch.cli sr -g ref.fa -o out.vcf sample.bam
+    python -m delly_tpu_torch.cli lr -g ref.fa -o out.vcf sample.bam
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import argparse
 import os
 import sys
 
-NOT_PORTED = ("lr", "asm", "cnv", "merge", "filter")
+NOT_PORTED = ("asm", "cnv", "merge", "filter")
 
 
 def _startup_checks(genome: str | None = None, files=(), exclude: str = "",
@@ -126,6 +129,46 @@ def _add_sr(sub):
     return p
 
 
+def _add_lr(sub):
+    p = sub.add_parser("lr", help="SV discovery in long-read data")
+    p.add_argument("-t", "--svtype", default="ALL")
+    p.add_argument("-y", "--technology", default="ont",
+                   choices=["ont", "pb"])
+    p.add_argument("-g", "--genome", required=True)
+    p.add_argument("-x", "--exclude", default="")
+    p.add_argument("-o", "--outfile", default="-")
+    p.add_argument("-l", "--alt-align", default="",
+                   help="alternate alignments config file")
+    p.add_argument("-q", "--map-qual", type=int, default=1)
+    p.add_argument("-c", "--minclip", type=int, default=25)
+    p.add_argument("-z", "--min-clique-size", type=int, default=3)
+    p.add_argument("-m", "--minrefsep", type=int, default=30)
+    p.add_argument("-n", "--maxreadsep", type=int, default=500)
+    p.add_argument("-p", "--max-reads", type=int, default=15)
+    p.add_argument("-w", "--cons-window", type=int, default=1000)
+    p.add_argument("-f", "--flank-size", type=int, default=100)
+    p.add_argument("-a", "--flank-quality", type=float, default=0.9)
+    p.add_argument("-i", "--indel-size", type=int, default=10000)
+    p.add_argument("-k", "--mei-minfrac", type=float, default=0.8)
+    p.add_argument("-r", "--tr-minfrac", type=float, default=0.85)
+    p.add_argument("-j", "--methyl-window", type=int, default=1000)
+    p.add_argument("-e", "--methyl-prob", type=int, default=128)
+    p.add_argument("--min-cpg-depth", type=int, default=5)
+    p.add_argument("-v", "--vcffile", default="")
+    p.add_argument("-u", "--geno-qual", type=int, default=5)
+    p.add_argument("-d", "--dump", default="")
+    p.add_argument("-b", "--max-geno-count", type=int, default=250)
+    p.add_argument("--pruning", type=int, default=1000,
+                   help="graph pruning cutoff")
+    p.add_argument("--extension", type=float, default=None,
+                   help="enforce indel extension (default: technology preset)")
+    p.add_argument("--read-cap", type=int, default=25,
+                   help="max. per-read genotype quality")
+    p.add_argument("--threads", type=int, default=4)
+    p.add_argument("input_files", nargs="+")
+    return p
+
+
 def _svtypes_to_set(svtype: str) -> set:
     """util.h:371-412."""
     from delly_tpu_torch.utils.tags import SVT_TRANS
@@ -182,6 +225,7 @@ def _dispatch(argv=None) -> int:
                         version=f"delly-tpu {VERSION}")
     sub = parser.add_subparsers(dest="command")
     _add_sr(sub)
+    _add_lr(sub)
     args, _extra = parser.parse_known_args(argv)
     if args.command is None:
         parser.print_help()
@@ -190,15 +234,17 @@ def _dispatch(argv=None) -> int:
 
 
 def _run_command(args) -> int:
+    if args.command not in ("sr", "lr"):
+        raise SystemExit(f"Unknown subcommand: {args.command}")
+    rc = (_startup_checks(args.genome, args.input_files, args.exclude,
+                          args.vcffile)
+          or _check_bam_headers(args.input_files, args.genome))
+    if rc:
+        return rc
+    # resolve the device before any work: cuda without a card raises
+    from delly_tpu_torch.utils import torchenv
+    torchenv.device()
     if args.command == "sr":
-        rc = (_startup_checks(args.genome, args.input_files, args.exclude,
-                              args.vcffile)
-              or _check_bam_headers(args.input_files, args.genome))
-        if rc:
-            return rc
-        # resolve the device before any work: cuda without a card raises
-        from delly_tpu_torch.utils import torchenv
-        torchenv.device()
         from delly_tpu_torch.models.config import SrConfig
         from delly_tpu_torch.models.sr import run_sr
         cfg = SrConfig(
@@ -216,7 +262,34 @@ def _run_command(args) -> int:
             min_cons_window=args.cons_window,
             max_threads=args.threads)
         return run_sr(cfg)
-    raise SystemExit(f"Unknown subcommand: {args.command}")
+    from delly_tpu_torch.models.config import LrConfig
+    from delly_tpu_torch.models.lr import run_lr
+    cfg = LrConfig(
+        genome=args.genome, files=args.input_files,
+        outfile=args.outfile, exclude=args.exclude,
+        vcffile=args.vcffile, dumpfile=args.dump,
+        altfile=args.alt_align,
+        technology=args.technology,
+        svtset=_svtypes_to_set(args.svtype),
+        min_map_qual=args.map_qual, min_clip=args.minclip,
+        min_clique_size=args.min_clique_size,
+        min_ref_sep=args.minrefsep, max_read_sep=args.maxreadsep,
+        max_read_per_sv=args.max_reads, min_geno_qual=args.geno_qual,
+        max_geno_read_count=args.max_geno_count,
+        min_cons_window=args.cons_window,
+        min_flank_size=args.flank_size,
+        flank_quality=args.flank_quality,
+        indelsize=args.indel_size,
+        mei_min_frac=args.mei_minfrac, tr_min_frac=args.tr_minfrac,
+        methyl_window=args.methyl_window, methyl_prob=args.methyl_prob,
+        min_cpg_depth=args.min_cpg_depth,
+        graph_pruning=args.pruning, geno_cap=args.read_cap,
+        max_threads=args.threads)
+    if args.extension is not None:
+        # the reference parser rounds the value through float32
+        import numpy as _np
+        cfg.indel_extension = float(_np.float32(args.extension))
+    return run_lr(cfg)
 
 
 def entry() -> None:

@@ -21,12 +21,24 @@
 //   laid out [letter][word][thread], from there. It reads 4 target
 //   columns per 32-bit load.
 // - lanes: a group of Gl = min(W, 32) lanes per pair (W >= 4; queries of
-//   65 to 4,096 rows), lane l holding words l*W/Gl ... (l+1)*W/Gl - 1.
+//   65 to 8,192 rows), lane l holding words l*W/Gl ... (l+1)*W/Gl - 1: up
+//   to 8 words a lane at W = 256, where one pair's 17 Peq planes take
+//   17,408 bytes of shared memory (a block of one warp, one pair).
 //   The lanes run the diagonal wavefront of the plain version: at step s
 //   lane l updates its words for column s - l, taking its carry-in from
 //   lane l-1's carry-out of the step before by a shuffle. Each lane reads
 //   its own words' 32 query bytes (a whole sector) and keeps its own
 //   planes; the lane holding bit qlen-1 keeps the score and the result.
+//
+// Queries of more than 8,192 rows run as strips of 8,192 rows, one launch
+// of the W = 256 lanes kernel each, from the bottom strip (rows 0 ...
+// 8,191) up. A strip writes the horizontal carry-out of its top word for
+// every column, one signed byte per (pair, column), and the next strip
+// takes it as its carry-in at row 0 in place of the mode's constant; the
+// carries are staged beside the target bytes. The strip holding row qlen
+// keeps the score and writes the result; a pair skips the strips above
+// its query. Column by column this is the recurrence of one tall query,
+// so the distances are those of the plain version at any width.
 //
 // Bound on the H100: operations, about 24 per Myers word and column
 // (chip_smoke.py counts them); the bytes of the pairs, read once, weigh
@@ -51,10 +63,13 @@ struct Args {
   const uint8_t* t;      // (B, N) target bytes, row-major
   const int32_t* tlens;
   const uint8_t* lut;    // 256 byte -> letter code
+  const int8_t* cin;     // (B, N) carries into row r0, or null (r0 = 0)
+  int8_t* cout;          // (B, N) carries out of the strip, or null (top)
   int32_t* out;
   int B, M, N, mode, nalpha;
+  int r0;                // first query row of this strip
   int qvec;              // q 16-byte aligned and M % 32 == 0
-  int tvec;              // t 4-byte aligned and N % 4 == 0
+  int tvec;              // t and cin 4-byte aligned and N % 4 == 0
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -70,25 +85,27 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
-// Columns [j0, j0 + 64) of the target rows of pairs b0 ... b0 + np - 1
-// into `buf` (row p at p * kRowWords words); columns past N are left
-// unwritten, and never read.
-__device__ __forceinline__ void stage_targets(const Args& a, uint32_t* buf,
-                                              int b0, int np, int j0) {
+// Columns [j0, j0 + 64) of the (B, N) byte rows `src` of pairs b0 ...
+// b0 + np - 1 (the targets, or a strip's carries) into `buf` (row p at
+// p * kRowWords words); columns past N are left unwritten, and never read.
+__device__ __forceinline__ void stage_rows(const Args& a, const void* src,
+                                           uint32_t* buf, int b0, int np,
+                                           int j0) {
+  const uint8_t* s = static_cast<const uint8_t*>(src);
   if (a.tvec) {
     const int per = min(kChunk, a.N - j0) >> 2;
     for (int e = threadIdx.x; e < np * 16; e += blockDim.x) {
       const int p = e >> 4, u = e & 15;
       if (u < per)
         cp_async4(buf + p * kRowWords + u,
-                  a.t + (size_t)(b0 + p) * a.N + j0 + 4 * u);
+                  s + (size_t)(b0 + p) * a.N + j0 + 4 * u);
     }
   } else {
     uint8_t* bb = reinterpret_cast<uint8_t*>(buf);
     for (int e = threadIdx.x; e < np * kChunk; e += blockDim.x) {
       const int p = e >> 6, u = e & 63;
       if (j0 + u < a.N)
-        bb[p * 4 * kRowWords + u] = a.t[(size_t)(b0 + p) * a.N + j0 + u];
+        bb[p * 4 * kRowWords + u] = s[(size_t)(b0 + p) * a.N + j0 + u];
     }
   }
 }
@@ -208,12 +225,12 @@ __global__ void __launch_bounds__(128) myers_thread_kernel(Args a) {
   int res = a.mode == 0 ? (tlen == 0 ? qlen : kBig) : qlen;
   const int hin0 = a.mode == 2 ? 0 : 1;
   const int nchunks = (s_tmax + kChunk - 1) / kChunk;
-  if (nchunks) stage_targets(a, ring, b0, np, 0);
+  if (nchunks) stage_rows(a, a.t, ring, b0, np, 0);
   cp_async_commit();
   for (int k = 0; k < nchunks; ++k) {
     if (k + 1 < nchunks)
-      stage_targets(a, ring + ((k + 1) & 1) * P * kRowWords, b0, np,
-                    (k + 1) * kChunk);
+      stage_rows(a, a.t, ring + ((k + 1) & 1) * P * kRowWords, b0, np,
+                 (k + 1) * kChunk);
     cp_async_commit();
     cp_async_wait1();
     __syncthreads();
@@ -264,6 +281,7 @@ __global__ void __launch_bounds__(128) myers_lanes_kernel(Args a) {
   uint32_t* peq = dyn + p * W + l;                   // [nalpha+1][P][W]
   const int pstride = P * W;
   uint32_t* ring = dyn + (a.nalpha + 1) * P * W;     // [4][P][kRowWords]
+  uint32_t* cring = ring + 4 * P * kRowWords;         // carries, if cin
   for (int i = tid; i < 256; i += blockDim.x) s_lut[i] = a.lut[i];
   if (tid == 0) s_tmax = 0;
   __syncthreads();
@@ -271,14 +289,17 @@ __global__ void __launch_bounds__(128) myers_lanes_kernel(Args a) {
   const int b = b0 + p;
   const int qlen = live ? a.qlens[b] : 0;
   const int tlen = live ? a.tlens[b] : 0;
-  const int tl = max(0, min(tlen, a.N));
+  // the strip's rows of the query; a strip above the query has no work
+  const int qrel = qlen - a.r0;
+  const bool holds = qlen <= 0 ? a.r0 == 0 : qrel >= 1 && qrel <= 32 * W;
+  const int tl = qrel > 0 || a.r0 == 0 ? max(0, min(tlen, a.N)) : 0;
   if (l == 0 && tl) atomicMax(&s_tmax, tl);
   // this lane's words of every plane, from its own 32 query bytes a word
   for (int pl = 0; pl <= a.nalpha; ++pl)
 #pragma unroll
     for (int k = 0; k < WL; ++k) peq[pl * pstride + k * GL] = 0u;
-  const int qn = min(qlen, a.M);
-  const uint8_t* qrow = a.q + (size_t)b * a.M;
+  const int qn = max(0, min(min(qlen, a.M) - a.r0, 32 * W));
+  const uint8_t* qrow = a.q + (size_t)b * a.M + a.r0;
 #pragma unroll 1
   for (int k = 0; k < WL; ++k) {
     const int base = 32 * (l * WL + k);
@@ -303,9 +324,10 @@ __global__ void __launch_bounds__(128) myers_lanes_kernel(Args a) {
   }
   __syncthreads();
 
-  const int hw = (qlen - 1) >> 5;
-  const uint32_t hb = (uint32_t)((qlen - 1) & 31);
-  const int owner = qlen > 0 ? hw / WL : 0;   // the lane holding word hw
+  const int hw = (qrel - 1) >> 5;
+  const uint32_t hb = (uint32_t)((qrel - 1) & 31);
+  // the lane holding word hw; none in a strip below the score's row
+  const int owner = !holds ? -1 : qlen > 0 ? hw / WL : 0;
   uint32_t pv[WL], mv[WL];
 #pragma unroll
   for (int k = 0; k < WL; ++k) {
@@ -322,14 +344,19 @@ __global__ void __launch_bounds__(128) myers_lanes_kernel(Args a) {
   const int tchunks = (tmax + kChunk - 1) / kChunk;
   const uint8_t* trow =
       reinterpret_cast<const uint8_t*>(ring) + p * 4 * kRowWords;
-  if (tchunks) stage_targets(a, ring, b0, np, 0);
+  const int8_t* crow =
+      reinterpret_cast<const int8_t*>(cring) + p * 4 * kRowWords;
+  auto stage = [&](int kc) {
+    const int off = (kc & 3) * P * kRowWords;
+    stage_rows(a, a.t, ring + off, b0, np, kc * kChunk);
+    if (a.cin) stage_rows(a, a.cin, cring + off, b0, np, kc * kChunk);
+  };
+  if (tchunks) stage(0);
   cp_async_commit();
   for (int kc = 0; kc < nchunks; ++kc) {
     // steps of chunk kc read columns of chunks kc - 1 and kc: a ring of
     // four buffers leaves chunk kc + 1 free to arrive meanwhile
-    if (kc + 1 < tchunks)
-      stage_targets(a, ring + ((kc + 1) & 3) * P * kRowWords, b0, np,
-                    (kc + 1) * kChunk);
+    if (kc + 1 < tchunks) stage(kc + 1);
     cp_async_commit();
     cp_async_wait1();
     __syncthreads();
@@ -339,14 +366,15 @@ __global__ void __launch_bounds__(128) myers_lanes_kernel(Args a) {
       const int j = s - l;
       int hout = 0;
       if (j >= 0 && j < tl) {
-        const int c = min(
-            (int)s_lut[trow[((j >> 6) & 3) * P * 4 * kRowWords + (j & 63)]],
-            a.nalpha);
+        const int at = ((j >> 6) & 3) * P * 4 * kRowWords + (j & 63);
+        if (a.cin && l == 0) hin = crow[at];   // the strip below's carry
+        const int c = min((int)s_lut[trow[at]], a.nalpha);
         uint32_t eq[WL];
 #pragma unroll
         for (int k = 0; k < WL; ++k) eq[k] = peq[c * pstride + k * GL];
         int delta = 0;
         hout = column<WL>(eq, pv, mv, hin, l * WL, hw, hb, delta);
+        if (a.cout && l == GL - 1) a.cout[(size_t)b * a.N + j] = (int8_t)hout;
         if (l == owner) {
           score += delta;
           track(a.mode, j, tlen, score, res);
@@ -376,15 +404,19 @@ int launch(Kernel kernel, const Args& a, int pairs, int threads, int smem,
 
 // q: (B, M) uint8 query bytes; t: (B, N) uint8 target bytes, row-major;
 // lut: 256 byte -> letter code, the batch's letters coded 0..nalpha-1.
-// W: words per query, a power of two in 1..128 with 32 * W >= M. lanes,
-// threads and smem as ops/myers_cuda.py launch_geometry gives them: lanes
-// 1 (thread layout) for W <= 2, min(W, 32) (lanes layout) above. Returns
-// cudaError_t.
+// W: words per strip, a power of two in 1..256 with 32 * W >= M - r0.
+// lanes, threads and smem as ops/myers_cuda.py launch_geometry gives
+// them: lanes 1 (thread layout) for W <= 2, min(W, 32) (lanes layout)
+// above. Queries of more than 8,192 rows: one call per strip of rows
+// [r0, r0 + 32 W), W = 256, r0 = 0 first; cin, the (B, N) int8 carries
+// of the strip below (null for r0 = 0); cout, this strip's (null for the
+// top strip). Returns cudaError_t.
 extern "C" int myers_launch(const void* q, int M, const void* qlens,
                             const void* t, int N, const void* tlens,
                             const void* lut, int nalpha, int B, int mode,
-                            int W, int lanes, int threads, int smem,
-                            void* out, void* stream) {
+                            int W, int lanes, int threads, int smem, int r0,
+                            const void* cin, void* cout, void* out,
+                            void* stream) {
   if (B <= 0) return 0;
   Args a;
   a.q = static_cast<const uint8_t*>(q);
@@ -392,17 +424,26 @@ extern "C" int myers_launch(const void* q, int M, const void* qlens,
   a.t = static_cast<const uint8_t*>(t);
   a.tlens = static_cast<const int32_t*>(tlens);
   a.lut = static_cast<const uint8_t*>(lut);
+  a.cin = static_cast<const int8_t*>(cin);
+  a.cout = static_cast<int8_t*>(cout);
   a.out = static_cast<int32_t*>(out);
   a.B = B;
   a.M = M;
   a.N = N;
   a.mode = mode;
   a.nalpha = nalpha;
+  a.r0 = r0;
   a.qvec = ((uintptr_t)q % 16 == 0) && (M % 32 == 0);
-  a.tvec = ((uintptr_t)t % 4 == 0) && (N % 4 == 0);
+  a.tvec = ((uintptr_t)t % 4 == 0) && ((uintptr_t)cin % 4 == 0) &&
+           (N % 4 == 0);
   auto st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || M > 32 * W || N < 0 || nalpha < 0 || nalpha > kMaxAlpha ||
-      mode < 0 || mode > 2 || threads < 32 || threads > 128 || threads % 32)
+  if (M < 1 || N < 0 || nalpha < 0 || nalpha > kMaxAlpha || mode < 0 ||
+      mode > 2 || threads < 32 || threads > 128 || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  // strips: W = 256 only, r0 a multiple of the strip, carries in above
+  // the bottom strip and out below the top one
+  if (r0 < 0 || r0 >= M || r0 % (32 * W) || (r0 > 0 && W != 256) ||
+      (cin != nullptr) != (r0 > 0) || (cout != nullptr) != (M - r0 > 32 * W))
     return (int)cudaErrorInvalidValue;
   const int rows = 4 * kRowWords;   // bytes of a staged target row
   if (W <= 2) {                     // thread layout
@@ -417,7 +458,7 @@ extern "C" int myers_launch(const void* q, int M, const void* qlens,
   if (lanes != (W < 32 ? W : 32) || threads % lanes)
     return (int)cudaErrorInvalidValue;
   const int n = threads, pairs = threads / lanes;
-  if (smem < 4 * (nalpha + 1) * W * pairs + 4 * pairs * rows)
+  if (smem < 4 * (nalpha + 1) * W * pairs + (cin ? 8 : 4) * pairs * rows)
     return (int)cudaErrorInvalidValue;
   switch (W) {
     case 4: return launch(myers_lanes_kernel<4>, a, pairs, n, smem, st);
@@ -426,6 +467,7 @@ extern "C" int myers_launch(const void* q, int M, const void* qlens,
     case 32: return launch(myers_lanes_kernel<32>, a, pairs, n, smem, st);
     case 64: return launch(myers_lanes_kernel<64>, a, pairs, n, smem, st);
     case 128: return launch(myers_lanes_kernel<128>, a, pairs, n, smem, st);
+    case 256: return launch(myers_lanes_kernel<256>, a, pairs, n, smem, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -498,13 +498,16 @@ def batched_edit_distance(queries, qlens, targets, tlens, mode=MODE_NW):
 
     Batches of at most MAX_ALPHA letters go to the Myers kernel K1 on
     CUDA tensors and to its plain version on CPU tensors
-    (ops/myers_cuda.py); larger alphabets and queries wider than K1
-    serves take the row-scan. Every batch goes to the device: there is
-    no pair or cell gate."""
+    (ops/myers_cuda.py), at any query width; larger alphabets take
+    the row-scan, each batch counted as ``rowscan``
+    (parallel/dispatch.py). Every batch goes to the device: there is no
+    pair or cell gate."""
     from delly_tpu_torch.ops.myers_cuda import batched_edit_distance_myers
+    from delly_tpu_torch.parallel import dispatch
     out = batched_edit_distance_myers(queries, qlens, targets, tlens, mode)
     if out is not None:
         return out
+    dispatch.count("rowscan")
     return batched_edit_distance_rowscan(queries, qlens, targets, tlens,
                                          mode)
 

@@ -4,9 +4,12 @@ Replaces ``delly_tpu/ops/myers_pallas.py::batched_edit_distance_pallas``
 (kernel ``_make_pallas`` :247). The kernel is csrc/myers.cu, in two
 layouts that ``launch_geometry`` chooses by the query's word count W:
 one thread per pair up to 64 query rows (W <= 2), a group of
-min(W, 32) lanes per pair above. On the H100 its floor is set by integer
-operations (~24 per 32-query-row word and target column); the bytes of
-the pairs it reads once weigh less.
+min(W, 32) lanes per pair above, up to W = 256 (8,192 rows, 8 words a
+lane). Longer queries (``lr``'s consensus distances of long DUPs and
+INSs) run as strips of 8,192 rows, one launch each from the bottom up,
+each strip's top carries handed to the next: K1 serves any width. On the H100
+its floor is set by integer operations (~24 per 32-query-row word and
+target column); the bytes of the pairs it reads once weigh less.
 
 ``myers`` takes tensors: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs the plain version
@@ -27,7 +30,7 @@ from delly_tpu_torch.ops.myers import (MAX_ALPHA, alphabet_lut,
                                        alphabet_size, myers_plain)
 from delly_tpu_torch.parallel import dispatch
 
-MAX_WORDS = 128          # queries up to 4096 rows; longer ones row-scan
+MAX_WORDS = 256          # words a launch serves: longer queries run in strips
 LANES_FROM_WORDS = 4     # W >= 4: a group of lanes per pair
 ROW_BYTES = 68           # a staged chunk of 64 target columns, padded
 SMEM_MAX = 232_448       # dynamic shared memory one block may use (H100)
@@ -39,7 +42,7 @@ def _lib():
     lib = _build.load("myers")
     if lib.myers_launch.argtypes is None:
         lib.myers_launch.argtypes = [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
-                                     _I, _I, _I, _I, _P, _P]
+                                     _I, _I, _I, _I, _I, _P, _P, _P, _P]
         lib.myers_launch.restype = _I
     return lib
 
@@ -57,20 +60,26 @@ def launch_geometry(W: int, nalpha: int = MAX_ALPHA) -> dict:
     """K1's launch for queries of W words and a batch of `nalpha`
     letters: the layout ("thread": a thread per pair, W <= 2; "lanes": a
     group of `lanes` = min(W, 32) lanes per pair, each holding
-    `words_per_lane` consecutive words), threads and pairs per block, the
-    staged target chunks in the ring, and the dynamic shared memory: the
-    Peq planes (nalpha + 1 of W words per pair, the last one empty) and
-    the ring of padded target rows."""
+    `words_per_lane` consecutive words), the `words` of one launch (W,
+    or MAX_WORDS for a query run in strips), threads and pairs per
+    block, the staged target chunks in the ring, and the dynamic shared
+    memory: the Peq planes (nalpha + 1 of `words` words per pair, the
+    last one empty) and the ring of padded target rows, twice over in
+    strips (the carries from the strip below are staged beside them)."""
+    words = min(W, MAX_WORDS)
     if W < LANES_FROM_WORDS:
         lanes, threads, buffers = 1, 128, 2
     else:
         lanes, buffers = min(W, 32), 4
         threads = 128 if W <= 16 else 32
     pairs = threads // lanes
-    smem = 4 * (nalpha + 1) * W * pairs + buffers * pairs * ROW_BYTES
+    rings = 2 if W > MAX_WORDS else 1
+    smem = (4 * (nalpha + 1) * words * pairs
+            + rings * buffers * pairs * ROW_BYTES)
     return {"layout": "thread" if lanes == 1 else "lanes", "lanes": lanes,
-            "words_per_lane": W // lanes, "threads": threads,
-            "pairs": pairs, "buffers": buffers, "smem": smem}
+            "words": words, "words_per_lane": words // lanes,
+            "threads": threads, "pairs": pairs, "buffers": buffers,
+            "smem": smem}
 
 
 def _check(q, qlens, t, tlens, lut):
@@ -92,8 +101,6 @@ def _check(q, qlens, t, tlens, lut):
                              f"{q.device}")
         if not x.is_contiguous():
             raise ValueError(f"myers: {name} must be contiguous")
-    if words_bucket(q.shape[1]) > MAX_WORDS:
-        raise ValueError(f"myers: queries wider than {32 * MAX_WORDS}")
 
 
 def myers(q: torch.Tensor, qlens: torch.Tensor, t: torch.Tensor,
@@ -116,32 +123,42 @@ def myers(q: torch.Tensor, qlens: torch.Tensor, t: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"myers: unsupported device {q.device}")
     b, m = q.shape
+    n = t.shape[1]
     out = torch.empty(b, dtype=torch.int32, device=q.device)
     if b == 0:
         return out
-    w = words_bucket(m)
-    geo = launch_geometry(w, nalpha)
-    rc = _lib().myers_launch(q.data_ptr(), m, qlens.data_ptr(),
-                             t.data_ptr(), t.shape[1], tlens.data_ptr(),
-                             lut.data_ptr(), nalpha, b, mode, w,
-                             geo["lanes"], geo["threads"], geo["smem"],
-                             out.data_ptr(), _build.stream_ptr(q.device))
-    _build.check(rc, "myers")
-    dispatch.count("myers")
+    geo = launch_geometry(words_bucket(m), nalpha)
+    w = geo["words"]
+    strips = -(-m // (32 * w))
+    # the carries out of a strip's top word, one byte per (pair, column)
+    carries = [torch.empty(b * max(n, 1), dtype=torch.int8, device=q.device)
+               for _ in range(min(strips - 1, 2))]
+    lib = _lib()
+    for s in range(strips):
+        cin = carries[(s - 1) % 2].data_ptr() if s else None
+        cout = carries[s % 2].data_ptr() if s + 1 < strips else None
+        rc = lib.myers_launch(q.data_ptr(), m, qlens.data_ptr(),
+                              t.data_ptr(), n, tlens.data_ptr(),
+                              lut.data_ptr(), nalpha, b, mode, w,
+                              geo["lanes"], geo["threads"], geo["smem"],
+                              32 * w * s, cin, cout, out.data_ptr(),
+                              _build.stream_ptr(q.device))
+        _build.check(rc, "myers")
+        dispatch.count("myers")
     return out
 
 
 def batched_edit_distance_myers(queries, qlens, targets, tlens,
                                 mode: int = 0):
     """Numpy contract of the Pallas entry point. Returns (B,) int32, or
-    None when the batch has more than MAX_ALPHA letters or queries
-    wider than the kernel serves (the caller row-scans those)."""
+    None when the batch has more than MAX_ALPHA letters (the caller
+    row-scans those)."""
     from delly_tpu_torch.utils import torchenv
 
     q = np.ascontiguousarray(np.asarray(queries), dtype=np.uint8)
     t = np.ascontiguousarray(np.asarray(targets), dtype=np.uint8)
     lut = alphabet_lut(q, t)
-    if lut is None or words_bucket(q.shape[1]) > MAX_WORDS:
+    if lut is None:
         return None
     dev = torchenv.device()
     out = myers(torch.from_numpy(q).to(dev),

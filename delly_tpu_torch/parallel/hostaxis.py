@@ -1,9 +1,14 @@
 """Host axis of the PyTorch port: the single-process identity.
 
 Counterpart of the JAX package's parallel/hostaxis.py for one process.
-Its drivers (models/sr.py, models/scan.py, models/genotype_sr.py) call
-these helpers unconditionally; with one process every helper is the
-identity, so they partition nothing and exchange nothing. A
+Its drivers call these helpers unconditionally: models/sr.py,
+models/scan.py and models/genotype_sr.py (``process_count``,
+``is_writer``, ``partition_plan``, ``exchange_owned``, ``barrier``), and
+the ``lr`` drivers models/lr.py, models/assemble.py and
+models/genotype_lr.py, which also call ``process_index``, ``owner_of``
+and ``allgather_obj`` (``owns`` pairs with ``owner_of`` as in the JAX
+package). With one process every helper is the identity, so they
+partition nothing and exchange nothing. A
 torch.distributed host axis comes in a later slice; until then a
 request for more than one process is refused instead of silently
 running each process over the whole genome.
@@ -26,6 +31,10 @@ def maybe_init() -> bool:
     return False
 
 
+def process_index() -> int:
+    return 0
+
+
 def process_count() -> int:
     return 1
 
@@ -34,8 +43,22 @@ def is_writer() -> bool:
     return True
 
 
+def owner_of(k: int) -> int:
+    """Owner process of plan slot k: this one."""
+    return 0
+
+
+def owns(k: int) -> bool:
+    return True
+
+
 def partition_plan(plan: list) -> list:
     return list(plan)
+
+
+def allgather_obj(obj) -> list:
+    """Every process's object, in process order: this one's."""
+    return [obj]
 
 
 def exchange_owned(products: dict) -> dict:

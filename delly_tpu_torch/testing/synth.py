@@ -1,15 +1,23 @@
 """Synthetic BAM/FASTA datasets for runs of the PyTorch port.
 
-A copy of two generators of the repository's test BAM writer
+A copy of five generators of the repository's test BAM writer
 (tests/bamsynth.py) and their helpers, bound to this package's io and
 utils, so that a run on the card (chip_smoke.py) can build the
-datasets without importing the JAX package:
+datasets without importing the JAX package; each returns (bam, fasta,
+truth):
 
 - ``make_multi_sv_dataset``: every contig carries a het DEL, a tandem
   DUP, an INV and a novel INS, and contig pairs a BND, under uniform
-  background pairs; returns (bam, fasta, truth);
+  background pairs;
 - ``make_deep_geno_dataset``: many het DELs under deep coverage, the
-  genotyping regime.
+  genotyping regime;
+- ``make_lr_sv_dataset``: long reads with the five SV families (CIGAR
+  DEL and INS, split-alignment DUP, INV and BND);
+- ``make_lr_genome_dataset``: a DEL and an INS per contig under long
+  background reads, optionally with ONT-like substitution and 1 bp indel
+  noise (``noisy_segment``);
+- ``make_deep_lr_dataset``: many het ~1 kb DELs under deep long-read
+  coverage, the long-read genotyping regime.
 
 Same seed and arguments give the same bytes as tests/bamsynth.py. One
 generator is the port's own, with no counterpart there:
@@ -24,6 +32,7 @@ import struct
 import numpy as np
 
 from delly_tpu_torch.io.bgzf import bgzf_compress
+from delly_tpu_torch.utils.tags import revcomp
 
 _NT16 = {c: i for i, c in enumerate("=ACMGRSVTWYHKDBN")}
 _NT16_LUT = np.full(256, 15, dtype=np.uint8)
@@ -132,6 +141,59 @@ def add_read_errors(rng_or_seed, seq: str, rate: float) -> str:
         codes = np.searchsorted(letters, b[hit]) % 4
         b[hit] = letters[(codes + g.integers(1, 4, len(hit))) % 4]
     return b.tobytes().decode()
+
+
+def noisy_segment(g, ref_seq: str, sub_rate: float,
+                  indel_rate: float):
+    """One aligned segment with substitution + 1bp indel noise.
+    Consumes exactly len(ref_seq) reference bases; returns
+    (cigar_ops, read_seq) where cigar_ops is a list of (op, len) with
+    op in M/I/D (how a real aligner would represent the noisy read)."""
+    if sub_rate <= 0 and indel_rate <= 0:
+        return [("M", len(ref_seq))], ref_seq
+    letters = "ACGT"
+    b = np.frombuffer(ref_seq.encode(), dtype=np.uint8).copy()
+    L = len(b)
+    r = g.random(L)
+    # substitutions
+    sub_hit = np.flatnonzero(r < sub_rate)
+    if len(sub_hit):
+        let = np.frombuffer(b"ACGT", dtype=np.uint8)
+        codes = np.searchsorted(let, b[sub_hit]) % 4
+        b[sub_hit] = let[(codes + g.integers(1, 4, len(sub_hit))) % 4]
+    # indels: positions (interior only), half insertions half deletions
+    ind = np.flatnonzero((r >= sub_rate)
+                         & (r < sub_rate + indel_rate))
+    ind = ind[(ind > 0) & (ind < L - 1)]
+    is_ins = g.random(len(ind)) < 0.5
+    ops = []
+    seq = []
+    prev = 0
+    for pos, insv in zip(ind.tolist(), is_ins.tolist()):
+        mlen = pos - prev
+        if mlen > 0:
+            ops.append(("M", mlen))
+            seq.append(b[prev:pos].tobytes().decode())
+        if insv:
+            ops.append(("M", 1))
+            seq.append(b[pos:pos + 1].tobytes().decode())
+            ops.append(("I", 1))
+            seq.append(letters[int(g.integers(0, 4))])
+            prev = pos + 1
+        else:
+            ops.append(("D", 1))
+            prev = pos + 1
+    if prev < L:
+        ops.append(("M", L - prev))
+        seq.append(b[prev:].tobytes().decode())
+    # merge adjacent same-op runs
+    merged = []
+    for op, ln in ops:
+        if merged and merged[-1][0] == op:
+            merged[-1][1] += ln
+        else:
+            merged.append([op, ln])
+    return [(op, ln) for op, ln in merged], "".join(seq)
 
 
 def make_multi_sv_dataset(tmpdir, n_contigs=4, contig_len=400_000,
@@ -359,6 +421,248 @@ def make_long_split_dataset(tmpdir, n_contigs=1, contig_len=400_000,
     bam = f"{tmpdir}/{name}.bam"
     fa = f"{tmpdir}/{name}.fa"
     write_bam(bam, contigs, blobs)
+    write_fasta(fa, contigs)
+    return bam, fa, truth
+
+
+def make_lr_genome_dataset(tmpdir, n_contigs=4, contig_len=1_000_000,
+                           reads_per_contig=250, read_len=4000,
+                           var_reads=12, seed=83, name="lrbig",
+                           error_rate=0.0, indel_error_rate=0.0):
+    """Genome-scale long-read dataset: per contig one ~1kb DEL (D op)
+    and one 500bp INS (I op), heterozygous (var_reads carriers each),
+    plus background reads. Returns (bam, fasta, truth) with truth =
+    [(chrom, kind, pos, length)]. error_rate adds substitution noise;
+    indel_error_rate adds 1bp I/D noise with matching CIGARs (ONT
+    error realism)."""
+    rng = random.Random(seed)
+    g = np.random.default_rng(seed + 1)
+
+    def seg(ref_seq):
+        return noisy_segment(g, ref_seq, error_rate, indel_error_rate)
+
+    def cat(*parts):
+        # parts: (ops, seq) or a bare structural op like (("D", n), "")
+        ops, seq = [], []
+        for po, ps in parts:
+            for op, ln in po:
+                if ops and ops[-1][0] == op:
+                    ops[-1] = (op, ops[-1][1] + ln)
+                else:
+                    ops.append((op, ln))
+            seq.append(ps)
+        return ops, "".join(seq)
+    contigs = [(f"chr{c + 1}", random_contig(rng, contig_len))
+               for c in range(n_contigs)]
+    del_len, ins_len = 1000, 500
+    recs = []
+    truth = []
+    qid = 0
+    for tid, (cname, ref) in enumerate(contigs):
+        posd = contig_len // 3
+        posi = 2 * contig_len // 3
+        ins_seq = random_contig(rng, ins_len)
+        truth.append((cname, "DEL", posd, del_len))
+        truth.append((cname, "INS", posi, ins_len))
+        # background reads
+        for _ in range(reads_per_contig):
+            p = rng.randint(0, contig_len - read_len - 1)
+            ops, seq = seg(ref[p:p + read_len])
+            recs.append((tid, p, encode_record(
+                f"b{qid}", 0x0, tid, p, 60, ops, -1, -1, 0, seq)))
+            qid += 1
+        # DEL carriers: M(lo) D(del_len) M(hi)
+        for _ in range(var_reads):
+            lo = rng.randint(800, 1800)
+            hi = rng.randint(800, 1800)
+            p = posd - lo
+            ops, seq = cat(seg(ref[p:posd]), ([("D", del_len)], ""),
+                           seg(ref[posd + del_len:
+                                   posd + del_len + hi]))
+            recs.append((tid, p, encode_record(
+                f"d{qid}", 0x0, tid, p, 60, ops, -1, -1, 0, seq)))
+            qid += 1
+        # INS carriers: M(lo) I(ins_len) M(hi)
+        for _ in range(var_reads):
+            lo = rng.randint(800, 1800)
+            hi = rng.randint(800, 1800)
+            p = posi - lo
+            ins_noisy = add_read_errors(rng, ins_seq, error_rate)
+            ops, seq = cat(seg(ref[p:posi]),
+                           ([("I", len(ins_noisy))], ins_noisy),
+                           seg(ref[posi:posi + hi]))
+            recs.append((tid, p, encode_record(
+                f"i{qid}", 0x0, tid, p, 60, ops, -1, -1, 0, seq)))
+            qid += 1
+    recs.sort(key=lambda r: (r[0], r[1]))
+    bam = f"{tmpdir}/{name}.bam"
+    fa = f"{tmpdir}/{name}.fa"
+    write_bam(bam, contigs, [r[2] for r in recs])
+    write_fasta(fa, contigs)
+    return bam, fa, truth
+
+
+def make_deep_lr_dataset(tmpdir, n_contigs=2, contig_len=1_000_000,
+                         dels_per_contig=100, coverage=45,
+                         var_reads=15, read_len=4000, seed=167,
+                         name="deeplr"):
+    """Deep-coverage LONG-READ genotyping regime (genotype.h:93-397):
+    many het ~1kb DELs under ~coverage x of 4kb reads. Every read
+    overlapping a breakpoint scores REF/ALT probes with
+    ~(2*offset)^2-cell NW DPs — the large-DP regime where the device
+    kernel dominates the pipeline. Returns (bam, fa, truth)."""
+    rng = random.Random(seed)
+    contigs = [(f"chr{c + 1}", random_contig(rng, contig_len))
+               for c in range(n_contigs)]
+    del_len = 1000
+    recs = []
+    truth = []
+    qid = 0
+    for tid, (cname, ref) in enumerate(contigs):
+        spacing = contig_len // (dels_per_contig + 1)
+        dels = []
+        for k in range(dels_per_contig):
+            posd = spacing * (k + 1)
+            if posd + del_len + read_len >= contig_len:
+                continue
+            dels.append(posd)
+            truth.append((cname, "DEL", posd, del_len))
+            for _ in range(var_reads):
+                lo = rng.randint(800, 1800)
+                hi = rng.randint(800, 1800)
+                p = posd - lo
+                seq = (ref[p:posd]
+                       + ref[posd + del_len:posd + del_len + hi])
+                recs.append((tid, p, encode_record(
+                    f"d{qid}", 0x0, tid, p, 60,
+                    [("M", lo), ("D", del_len), ("M", hi)],
+                    -1, -1, 0, seq)))
+                qid += 1
+        nreads = coverage * contig_len // (2 * read_len)  # het: alt
+        # carriers above carry ~half the depth at breakpoints
+        for _ in range(nreads):
+            p = rng.randint(0, contig_len - read_len - 1)
+            recs.append((tid, p, encode_record(
+                f"b{qid}", 0x0, tid, p, 60, [("M", read_len)],
+                -1, -1, 0, ref[p:p + read_len])))
+            qid += 1
+    recs.sort(key=lambda r: (r[0], r[1]))
+    bam = f"{tmpdir}/{name}.bam"
+    fa = f"{tmpdir}/{name}.fa"
+    write_bam(bam, contigs, [r[2] for r in recs])
+    write_fasta(fa, contigs)
+    return bam, fa, truth
+
+
+def make_lr_sv_dataset(tmpdir, seed=103, name="lrsv", contig_len=140_000,
+                       read_len=4000, var_reads=12, bg_reads=120):
+    """Long-read mixed-SV dataset: split-alignment evidence for a
+    tandem DUP, an INV (reverse-strand supplementary) and a
+    cross-contig BND, plus CIGAR-op DEL and INS — the five families
+    through the lr junction walk (junction.h:319-460 select* paths).
+    Returns (bam, fasta, truth)."""
+    rng = random.Random(seed)
+    ref1 = random_contig(rng, contig_len)
+    ref2 = random_contig(rng, contig_len)
+    contigs = [("ctgA", ref1), ("ctgB", ref2)]
+    h = read_len // 2
+    recs = []
+    qid = 0
+
+    def bg(tid, ref):
+        nonlocal qid
+        for _ in range(bg_reads):
+            p = rng.randint(0, len(ref) - read_len)
+            recs.append((tid, p, encode_record(
+                f"b{qid}", 0x0, tid, p, 60, [("M", read_len)], -1, -1,
+                0, ref[p:p + read_len])))
+            qid += 1
+
+    bg(0, ref1)
+    bg(1, ref2)
+
+    # DEL (D op) at ctgA 20000, 1200bp
+    del_bp, del_len = 20_000, 1200
+    for _ in range(var_reads):
+        lo = rng.randint(1200, 2400)
+        hi = read_len - lo
+        p = del_bp - lo
+        seq = ref1[p:del_bp] + ref1[del_bp + del_len:del_bp + del_len + hi]
+        recs.append((0, p, encode_record(
+            f"d{qid}", 0x0, 0, p, 60,
+            [("M", lo), ("D", del_len), ("M", hi)], -1, -1, 0, seq)))
+        qid += 1
+
+    # INS (I op) at ctgA 45000, 500bp novel
+    ins_bp = 45_000
+    ins_seq = "".join(rng.choice("ACGT") for _ in range(500))
+    for _ in range(var_reads):
+        lo = rng.randint(1200, 2000)
+        hi = read_len - lo - len(ins_seq)
+        p = ins_bp - lo
+        seq = ref1[p:ins_bp] + ins_seq + ref1[ins_bp:ins_bp + hi]
+        recs.append((0, p, encode_record(
+            f"i{qid}", 0x0, 0, p, 60,
+            [("M", lo), ("I", len(ins_seq)), ("M", hi)], -1, -1, 0,
+            seq)))
+        qid += 1
+
+    # DUP at ctgA [70000, 74000): split reads over the copy junction
+    dup1, dup2 = 70_000, 74_000
+    for _ in range(var_reads):
+        seq = ref1[dup2 - h:dup2] + ref1[dup1:dup1 + h]
+        p = dup2 - h
+        recs.append((0, p, encode_record(
+            f"u{qid}", 0x0, 0, p, 60, [("M", h), ("S", h)], -1, -1, 0,
+            seq)))
+        recs.append((0, dup1, encode_record(
+            f"u{qid}", 0x800, 0, dup1, 60, [("S", h), ("M", h)],
+            -1, -1, 0, seq)))
+        qid += 1
+
+    # INV at ctgA [100000, 106000): read crosses the left boundary into
+    # the inverted segment; the supplementary is reverse-strand
+    inv1, inv2 = 100_000, 106_000
+    for _ in range(var_reads):
+        seq = ref1[inv1 - h:inv1] + revcomp(ref1[inv2 - h:inv2])
+        p = inv1 - h
+        recs.append((0, p, encode_record(
+            f"v{qid}", 0x0, 0, p, 60, [("M", h), ("S", h)], -1, -1, 0,
+            seq)))
+        # reverse-strand supplementary: stored SEQ is revcomp(read),
+        # CIGAR in reference orientation
+        recs.append((0, inv2 - h, encode_record(
+            f"v{qid}", 0x810, 0, inv2 - h, 60, [("M", h), ("S", h)],
+            -1, -1, 0, revcomp(seq))))
+        qid += 1
+
+    # BND ctgA:125000 (3') -> ctgB:30000 (5'). Half the reads carry the
+    # primary on each side: the assembly's translocation MSA runs at
+    # refIndex == sv.chr and needs srStore entries there (primaries all
+    # on one side leave the other chromosome's store empty and the SV
+    # unassembled — reference assemble.h:768-770 behaves identically).
+    bnd_a, bnd_b = 125_000, 30_000
+    for k in range(var_reads):
+        seq = ref1[bnd_a - h:bnd_a] + ref2[bnd_b:bnd_b + h]
+        p = bnd_a - h
+        fl_a, fl_b = (0x0, 0x800) if k % 2 == 0 else (0x800, 0x0)
+        recs.append((0, p, encode_record(
+            f"x{qid}", fl_a, 0, p, 60, [("M", h), ("S", h)], -1, -1, 0,
+            seq)))
+        recs.append((1, bnd_b, encode_record(
+            f"x{qid}", fl_b, 1, bnd_b, 60, [("S", h), ("M", h)],
+            -1, -1, 0, seq)))
+        qid += 1
+
+    truth = [("DEL", "ctgA", del_bp, del_bp + del_len),
+             ("INS", "ctgA", ins_bp, ins_bp),
+             ("DUP", "ctgA", dup1, dup2),
+             ("INV", "ctgA", inv1, inv2),
+             ("BND", "ctgA", bnd_a, "ctgB", bnd_b)]
+    recs.sort(key=lambda r: (r[0], r[1]))
+    bam = f"{tmpdir}/{name}.bam"
+    fa = f"{tmpdir}/{name}.fa"
+    write_bam(bam, contigs, [r[2] for r in recs])
     write_fasta(fa, contigs)
     return bam, fa, truth
 

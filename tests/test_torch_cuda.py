@@ -52,7 +52,8 @@ def test_myers_kernel_matches_plain(card, m, n, nalpha):
         assert torch.equal(got.cpu(), want)
 
 
-K1_QLENS = [0, 1, 31, 32, 33, 64, 65, 128, 129, 2048, 4096]
+K1_QLENS = [0, 1, 31, 32, 33, 64, 65, 128, 129, 2048, 4096, 4097, 8192,
+            8193, 16384]
 
 
 @pytest.mark.cuda
@@ -60,29 +61,46 @@ K1_QLENS = [0, 1, 31, 32, 33, 64, 65, 128, 129, 2048, 4096]
 @pytest.mark.parametrize("qlen", K1_QLENS)
 def test_myers_layouts_match_plain(card, qlen, nalpha):
     """Both layouts of csrc/myers.cu (a thread per pair up to 64 rows, a
-    lane group above) at their edges: queries of exactly qlen rows beside
-    ragged shorter ones, in 131 pairs (no multiple of a block's pairs),
-    targets of 0, 1 and N columns, row-major with N = 150 (staged byte
-    by byte) and 256 (4-byte copies), all three modes."""
+    lane group above) at their edges, and queries of more than 8,192
+    rows in strips: queries of exactly qlen rows beside ragged shorter
+    ones (1, 4,097, 8,192 and 8,193 rows among them where they fit), in
+    131 pairs (no multiple of a block's pairs), targets of 0, 1 and N
+    columns, half of them a mutated piece of their query, row-major
+    with N = 150 (staged byte by byte) and 256 (4-byte copies); queries
+    above 4,096 rows take N = 2,048 (lr's consensus distances: targets
+    shorter than the queries) in place of 256, and 8,192 rows also
+    N = 8,400; all three modes, one K1 launch per strip of 8,192 rows."""
     rng = np.random.default_rng(qlen * 17 + nalpha)
     letters = np.frombuffer(b"ACGTNRYKMSWBDHVX", dtype=np.uint8)[:nalpha]
     b, m = 131, max(qlen, 1)
-    for n in (150, 256):
+    edges = [e for e in (1, 4097, 8192, 8193) if e < qlen]
+    widths = (150, 256) if qlen <= 4096 else (150, 2048)
+    for n in widths + ((8400,) if qlen == 8192 else ()):
         q = letters[rng.integers(0, nalpha, size=(b, m))]
         t = letters[rng.integers(0, nalpha, size=(b, n))]
         t[0, :nalpha] = letters
         ql = np.full(b, qlen, dtype=np.int32)
         ql[1::7] = rng.integers(0, qlen + 1, size=len(ql[1::7]))
+        ql[2:2 + len(edges)] = edges
         tl = np.resize(np.array([0, 1, n], dtype=np.int32), b)
         tl[3::5] = rng.integers(0, n + 1, size=len(tl[3::5]))
+        for i in range(8, b, 2):
+            k = int(min(ql[i], tl[i]))
+            off = int(rng.integers(0, ql[i] - k + 1))
+            seg = q[i, off:off + k].copy()
+            hit = rng.random(k) < 0.08
+            seg[hit] = letters[rng.integers(0, nalpha, size=int(hit.sum()))]
+            t[i, :k] = seg
         lut = alphabet_lut(q, t)
         assert alphabet_size(lut) == nalpha
         args = [torch.from_numpy(x) for x in (q, ql, t, tl, lut)]
         for mode in (0, 1, 2):
             want = myers_plain(*args, mode)
+            dispatch.reset()
             got = myers(*(x.to(card) for x in args), mode,
                         alphabet_size(lut))
             torch.cuda.synchronize()
+            assert dispatch.snapshot()["myers"] == -(-m // 8192)
             assert torch.equal(got.cpu(), want), (n, mode)
 
 

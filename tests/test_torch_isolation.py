@@ -77,3 +77,20 @@ def test_other_words_not_ported(capsys):
     for word in NOT_PORTED:
         assert main([word, "x"]) == 1
     assert "not yet in the PyTorch port" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("name,args", [
+    ("process_index", ()), ("process_count", ()), ("is_writer", ()),
+    ("owner_of", (5,)), ("owns", (5,)), ("partition_plan", ([3, 1, 2],)),
+    ("allgather_obj", ({"sv": 1},)), ("exchange_owned", ({2: "b"},)),
+    ("barrier", ("lr-done",)),
+])
+def test_host_axis_identities_match_jax(monkeypatch, name, args):
+    """Every host-axis helper the sr and lr drivers call gives, in one
+    process, what the JAX package's gives outside a process world."""
+    from delly_tpu.parallel import hostaxis as jhostaxis
+    from delly_tpu_torch.parallel import hostaxis
+
+    for var in ("DELLY_TPU_DIST", "DELLY_TPU_COORD", "DELLY_TPU_NPROC"):
+        monkeypatch.delenv(var, raising=False)
+    assert getattr(hostaxis, name)(*args) == getattr(jhostaxis, name)(*args)

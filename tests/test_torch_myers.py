@@ -128,28 +128,35 @@ def test_nalpha_from_alphabet_size(torch_cpu, nalpha):
 
 def _query_buckets():
     """Every padded query width batched_pairs_distance makes
-    (ops/edist.py bucket_q): 32...512 by 32, then 1,024...4,096."""
-    return list(range(32, 513, 32)) + [1024, 2048, 4096]
+    (ops/edist.py bucket_q): 32...512 by 32, then 1,024...8,192 (W =
+    256, one launch) and 16,384 and 32,768 (lr's consensus distances of
+    long DUPs and INSs, run in strips of W = 256)."""
+    return list(range(32, 513, 32)) + [1024, 2048, 4096, 8192, 16384, 32768]
 
 
 @pytest.mark.parametrize("m", _query_buckets())
 def test_launch_geometry(m):
     """K1's host geometry at every query bucket and alphabet size: the
-    lanes cover all W words, a lane group is a power of two of at most
-    32 lanes that divides the block, queries of up to 64 rows take one
-    thread per pair, and the shared memory the kernel needs fits."""
+    lanes cover all W words of a launch (at most MAX_WORDS; wider
+    queries take strips of MAX_WORDS words, one lane group a pair), a
+    lane group is a power of two of at most 32 lanes that divides the
+    block, queries of up to 64 rows take one thread per pair, and the
+    shared memory the kernel needs (the ring twice over in strips, for
+    the carries) fits in what one block may use on the H100."""
     w = myers_cuda.words_bucket(m)
     for nalpha in range(1, 17):
         geo = myers_cuda.launch_geometry(w, nalpha)
-        lanes = geo["lanes"]
-        assert lanes * geo["words_per_lane"] == w
+        lanes, words = geo["lanes"], geo["words"]
+        assert words == min(w, myers_cuda.MAX_WORDS)
+        assert lanes * geo["words_per_lane"] == words
         assert lanes & (lanes - 1) == 0 and 1 <= lanes <= 32
         assert geo["layout"] == ("thread" if m <= 64 else "lanes")
         assert geo["threads"] % 32 == 0 and geo["threads"] <= 128
         assert geo["pairs"] * lanes == geo["threads"]
-        planes = 4 * (nalpha + 1) * w * geo["pairs"]
+        planes = 4 * (nalpha + 1) * words * geo["pairs"]
         ring = geo["buffers"] * geo["pairs"] * myers_cuda.ROW_BYTES
-        assert geo["smem"] == planes + ring <= myers_cuda.SMEM_MAX
+        rings = 2 if w > words else 1
+        assert geo["smem"] == planes + rings * ring <= myers_cuda.SMEM_MAX
         if lanes == 1:   # the query rows are staged in the target ring
             assert geo["pairs"] * 4 * (((m + 3) // 4) | 1) <= ring
 
@@ -172,3 +179,41 @@ def test_layout_boundaries_match_jax(torch_cpu, m, nalpha):
         myers_cuda.batched_edit_distance_myers(q, ql, t, tl, 1),
         np.asarray(batched_edit_distance_pallas(q, ql, t, tl, 1,
                                                 interpret=True)))
+
+
+def _long_case(seed, b, m, n):
+    """DNA pairs of long queries: ragged query lengths from 4,097 to m
+    (m and 4,097 included, and one of a single row), targets of up to n
+    columns (one empty), half of them a mutated piece of their query."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    q = letters[rng.integers(0, 4, size=(b, m))]
+    t = letters[rng.integers(0, 4, size=(b, n))]
+    ql = rng.integers(min(m, 4097), m + 1, size=b).astype(np.int32)
+    ql[:3] = [m, min(m, 4097), 1]
+    tl = rng.integers(n // 2, n + 1, size=b).astype(np.int32)
+    tl[-1] = 0
+    for i in range(0, b, 2):
+        k = int(min(ql[i], tl[i]))
+        off = int(rng.integers(0, ql[i] - k + 1))
+        seg = q[i, off:off + k].copy()
+        hit = rng.random(k) < 0.08
+        seg[hit] = letters[rng.integers(0, 4, size=int(hit.sum()))]
+        t[i, :k] = seg
+    return q, ql, t, tl
+
+
+@pytest.mark.parametrize("m,n,mode", [(8192, 2048, 0), (4096, 4096, 0),
+                                      (8192, 2048, 1), (8192, 2048, 2),
+                                      (16384, 2048, 0), (16384, 1024, 2)])
+def test_long_queries_match_jax_host(torch_cpu, m, n, mode):
+    """Long queries, the widths lr gives K1 (consensus distances
+    bucketed to 8,192 x 2,048 and 4,096 x 4,096, and 16,384 rows for
+    long DUPs and INSs, which K1 runs in two strips), on the plain
+    version through the batch entry point: the distances of the JAX
+    package's host edit_distance, and no batch on the row-scan."""
+    q, ql, t, tl = _long_case(m + n + mode, 6, m, n)
+    dispatch.reset()
+    got = edist.batched_edit_distance(q, ql, t, tl, mode)
+    assert dispatch.snapshot()["rowscan"] == 0
+    np.testing.assert_array_equal(got, _oracle(q, ql, t, tl, mode))
