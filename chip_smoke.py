@@ -56,9 +56,28 @@
    plain version on the card, and the largest is timed. The row-scan,
    which served queries wider than 4,096 rows before K1 did, is timed
    once on one recorded 8,192-row consensus batch.
-5. Starts the same sr and lr commands (not the bench-size deep-lr ones)
+5. Generates the cohort datasets (in a second worker process, started
+   with the first) and runs the cohort commands on the card, each step
+   between a reset and a read of the launch counters: the germline
+   workflow over make_population_cohort's 50 samples of 2 x 300 kb
+   (bench_e2e.py's cohort engine: 50 x `sr`, `merge`, one joint `sr -v`
+   over the 50 BAMs, `filter -f germline`; site recall and precision and
+   genotype agreement against the population truth), the somatic
+   workflow over a tumor/control pair on 8 x 1.5 Mb (joint `sr`, `filter
+   -f somatic`: every somatic DEL kept, no germline DEL), `asm` on
+   bench_e2e.py's 1.5 Mb assembly pair (DEL and INS within 50 bp), `-y
+   diploid` on tests/test_asm.py's 2 Mb haplotypes (DEL 1/1, INS phased)
+   and the split-alignment DUP, INV and BND, whose K1 launches are held
+   equal to the plain version on the card, and `cnv` on bench_e2e.py's
+   8 x 1.5 Mb (`-c`, `-u` and the statistics file; every read-depth hole
+   called) with its cohort step (a second sample, `merge -e -y 0 -q 2`,
+   `cnv -v`). K1 must launch in the joint `sr -v` and in the families run; no
+   step may take a host route or a row-scan batch.
+6. Starts the same sr and lr commands (not the bench-size deep-lr ones)
    with DELLY_TPU_TORCH_DEVICE=cpu (together, one torch thread each,
-   with their stage profiles) in the
+   with their stage profiles), and each workflow of phase 5 in one
+   process that runs its steps one after the other (each step reading
+   the card's outputs of the steps before), in the
    background, and meanwhile holds K3/K3-tb against their plain versions
    in all four end-gap configs at every band (512...4096) with M = 256,
    at every band with M = 16,384 (n = 1 included) and at m = 32,768;
@@ -70,9 +89,10 @@
    line's K3 and K3-tb numbers, with K3-tb's chain floor (the longest
    walk's steps x the chase probe's step). The plain versions' times of
    this phase are taken with the CPU runs going. Last, checks that every
-   card VCF equals its CPU run's apart from ##fileDate.
-6. Prints the kernels line (K1's entry with its lr launches, pairs by
-   shape and largest launch), then as the last line
+   card output equals its CPU run's apart from ##fileDate (BCF decoded,
+   gzip files decompressed).
+7. Prints the kernels line (K1's entry with its lr and asm launches,
+   pairs by shape and largest launch), then as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}:
    the run uses one card, cuda:0.
 
@@ -994,11 +1014,12 @@ def print_msa_split(label, stages, acc, details) -> None:
     details["runs"][label]["assembly_split"] = acc
 
 
-def run_card(argv, details, label, wraps=()):
+def run_card(argv, details, label, wraps=(), quiet=False):
     """One CLI run on the card between a reset and a read of the launch
     counters, timed by stage. `wraps` holds (module, name, make) triples:
     module.name is replaced by make(module.name) for the run and put
-    back after it."""
+    back after it. `quiet` keeps the run's lines off the output (the
+    caller prints a sum over many runs)."""
     from delly_tpu_torch.cli import main
     from delly_tpu_torch.parallel import dispatch
     from delly_tpu_torch.utils import log
@@ -1027,26 +1048,44 @@ def run_card(argv, details, label, wraps=()):
         if msg is not None:
             key = msg.split(",")[0][:40]
             stages[key] = stages.get(key, 0.0) + (te - ts)
-    print(f"{label}: wall {t1 - t0:.3f}s, launches {counts}")
-    for k, v in stages.items():
-        print(f"  {k}: {v:.3f}s")
+    if not quiet:
+        print(f"{label}: wall {t1 - t0:.3f}s, launches {counts}")
+        for k, v in stages.items():
+            print(f"  {k}: {v:.3f}s")
     details.setdefault("runs", {})[label] = {
         "wall_s": t1 - t0, "stages": stages, "launches": counts}
     return counts, stages
 
 
-def vcf_calls(vcf) -> list:
+def output_lines(path) -> list:
+    """An output's lines for comparison: BCF decoded to VCF text, a gzip
+    file decompressed (its header holds its write time), the ##fileDate
+    line dropped."""
+    import gzip
+
+    from delly_tpu_torch.io.bcf import bcf_to_vcf_text
+
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if path.endswith(".bcf"):
+        text = bcf_to_vcf_text(data)
+    elif data[:2] == b"\x1f\x8b":
+        text = gzip.decompress(data).decode()
+    else:
+        text = data.decode()
+    return [ln for ln in text.splitlines() if not ln.startswith("##fileDate")]
+
+
+def records(path) -> list:
+    """A VCF's or BCF's record lines, split into columns."""
+    return [ln.split("\t") for ln in output_lines(path)
+            if ln and not ln.startswith("#")]
+
+
+def vcf_calls(path) -> list:
     """(SVTYPE, chrom, pos, ALT, GT) of each record."""
-    calls = []
-    with open(vcf) as fh:
-        for ln in fh:
-            if ln.startswith("#"):
-                continue
-            c = ln.rstrip("\n").split("\t")
-            svt = [f for f in c[7].split(";")
-                   if f.startswith("SVTYPE=")][0][7:]
-            calls.append((svt, c[0], int(c[1]), c[4], c[9].split(":")[0]))
-    return calls
+    return [([f for f in r[7].split(";") if f.startswith("SVTYPE=")][0][7:],
+             r[0], int(r[1]), r[4], r[9].split(":")[0]) for r in records(path)]
 
 
 def svmix_score(vcf, truth):
@@ -1063,11 +1102,6 @@ def svmix_score(vcf, truth):
     tp = sum(any(match(t, *c) for c in calls) for t in truth)
     good = sum(any(match(t, *c) for t in truth) for c in calls)
     return tp, len(truth), good, len(calls)
-
-
-def vcf_body(path):
-    with open(path) as fh:
-        return [ln for ln in fh if not ln.startswith("##fileDate")]
 
 
 def phase_e2e(work, details):
@@ -1134,28 +1168,47 @@ def phase_e2e(work, details):
     return launches, k3_launches, cmds
 
 
+def start_host(args, err_path, **env) -> tuple:
+    """Starts `python args` from the repository on the host
+    (DELLY_TPU_TORCH_DEVICE=cpu, one torch thread, and `env`), its
+    stderr into err_path: (process, t0, end times)."""
+    err = open(err_path, "w")
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, *args], cwd=REPO, stdout=subprocess.DEVNULL,
+        stderr=err, env=dict(os.environ, DELLY_TPU_TORCH_DEVICE="cpu",
+                             OMP_NUM_THREADS="1", **env))
+    err.close()
+    ends = {}
+    threading.Thread(target=lambda: ends.setdefault(
+        "t", (proc.wait(), time.time())[1]), daemon=True).start()
+    return proc, t0, ends
+
+
+def wait_host(label, proc, err_path, t0, ends) -> float:
+    """Waits for a process of start_host and fails unless it exited 0;
+    returns its wall seconds."""
+    rc = proc.wait()
+    while "t" not in ends:
+        time.sleep(0.01)
+    with open(err_path) as fh:
+        err = fh.read()
+    need(rc == 0, f"{label} on cpu exited {rc}: {err[-1500:]}")
+    return ends["t"] - t0
+
+
 def start_cpu_runs(cmds: dict, p) -> list:
-    """Starts the CPU runs (DELLY_TPU_TORCH_DEVICE=cpu, one torch thread
-    each, with their stage profiles): [(label, process, profile, stderr
-    file, t0, end times)]. They write their VCFs beside the card's."""
+    """Starts the CPU runs (with their stage profiles): [(label, process,
+    profile, stderr file, t0, end times)]. They write their VCFs beside
+    the card's."""
     runs = []
     for label, argv in cmds.items():
         argv = [a.replace("{}", "cpu") if a.endswith(".{}.vcf") else a
                 for a in argv]
         stem = label.replace(" ", "_")
-        prof = p(f"profile.{stem}.json")
-        env = dict(os.environ, DELLY_TPU_TORCH_DEVICE="cpu",
-                   DELLY_TPU_PROFILE=prof, OMP_NUM_THREADS="1")
-        err_path = p(f"stderr.{stem}.txt")
-        err = open(err_path, "w")
-        t0 = time.time()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "delly_tpu_torch.cli", *argv], cwd=REPO,
-            env=env, stdout=subprocess.DEVNULL, stderr=err)
-        err.close()
-        ends = {}
-        threading.Thread(target=lambda pr=proc, e=ends: e.setdefault(
-            "t", (pr.wait(), time.time())[1]), daemon=True).start()
+        prof, err_path = p(f"profile.{stem}.json"), p(f"stderr.{stem}.txt")
+        proc, t0, ends = start_host(["-m", "delly_tpu_torch.cli", *argv],
+                                    err_path, DELLY_TPU_PROFILE=prof)
         runs.append((label, proc, prof, err_path, t0, ends))
     return runs
 
@@ -1164,13 +1217,7 @@ def finish_cpu_runs(runs: list, cmds: dict, details) -> None:
     """Waits for the CPU runs, prints their stage profiles and checks that
     every card VCF equals its CPU run's apart from ##fileDate."""
     for label, proc, prof, err_path, t0, ends in runs:
-        rc = proc.wait()
-        while "t" not in ends:
-            time.sleep(0.01)
-        wall = ends["t"] - t0
-        with open(err_path) as fh:
-            err = fh.read()
-        need(rc == 0, f"{label} on cpu exited {rc}: {err[-1500:]}")
+        wall = wait_host(label, proc, err_path, t0, ends)
         with open(prof) as fh:
             stages = json.load(fh)
         print(f"{label} on cpu: process wall {wall:.3f}s, "
@@ -1181,7 +1228,7 @@ def finish_cpu_runs(runs: list, cmds: dict, details) -> None:
                                                      **stages}
     for argv in cmds.values():
         out = argv[argv.index("-o") + 1]
-        a, b = (vcf_body(out.replace("{}", dv)) for dv in ("cuda", "cpu"))
+        a, b = (output_lines(out.replace("{}", dv)) for dv in ("cuda", "cpu"))
         stem = os.path.basename(out).split(".")[0]
         need(a == b, f"{stem}: card and cpu VCFs differ")
         print(f"{stem}: card VCF == cpu VCF ({len(a)} lines)")
@@ -1233,25 +1280,31 @@ LR_DATASETS = {
     "deep-lr": ("make_deep_lr_dataset", DEEP_LR),
     "deep-lr small": ("make_deep_lr_dataset", DEEP_LR_CPU),
 }
-def make_lr_datasets(work) -> dict:
-    """The LR_DATASETS under `work`, by name: (bam, fasta, truth), and
-    the seconds they took."""
+
+
+def make_datasets(work, table) -> dict:
+    """The datasets of `table` (LR_DATASETS, COHORT_DATASETS) under
+    `work`, by name, as their generators return them, and the seconds
+    they took."""
     from delly_tpu_torch.testing import synth
 
     t0 = time.time()
     out = {k: getattr(synth, gen)(work, **kw)
-           for k, (gen, kw) in LR_DATASETS.items()}
+           for k, (gen, kw) in table.items()}
     out["seconds"] = time.time() - t0
     return out
 
 
-def start_lr_datasets(work):
-    """Generates the lr datasets in a worker process (about 45 s of host
-    work, mostly the noisy genome's indels), which runs beside the kernel
-    checks and the sr runs. Returns (pool, future); the pool is spawned,
-    not forked, since this process holds the card."""
-    pool = ProcessPoolExecutor(1, mp_context=get_context("spawn"))
-    return pool, pool.submit(make_lr_datasets, work)
+def start_datasets(work):
+    """Generates the lr datasets and phase 5's datasets in two worker
+    processes (about 45 s of host work each), which run beside the
+    kernel checks and the sr runs. Returns (pool, {"lr": future,
+    "cohort": future}); the pool is spawned, not forked, since this
+    process holds the card."""
+    pool = ProcessPoolExecutor(2, mp_context=get_context("spawn"))
+    return pool, {"lr": pool.submit(make_datasets, work, LR_DATASETS),
+                  "cohort": pool.submit(make_datasets, work,
+                                        COHORT_DATASETS)}
 
 
 def lr_sv_check(calls) -> bool:
@@ -1389,7 +1442,7 @@ def phase_lr(dev, work, details, gen) -> tuple:
     of the two bench-size runs equal to the plain version and times the
     largest, and times the row-scan on one 8,192-row consensus batch.
     Returns (launches by run, the CPU runs' commands, K1's lr numbers).
-    `gen` is the future of start_lr_datasets."""
+    `gen` is the lr future of start_datasets."""
     from delly_tpu_torch.ops import edist, myers_cuda
 
     t0 = time.time()
@@ -1472,6 +1525,354 @@ def phase_lr(dev, work, details, gen) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the cohort commands (merge, filter, asm, cnv)
+# ---------------------------------------------------------------------------
+
+# At the sizes bench_e2e.py gives its engines: the cohort engine
+# (make_population_cohort's defaults: 50 samples of 2 x 300 kb, 30 het
+# DELs, 18,000 pairs per contig and sample), svmix's genome for the
+# tumor/control pair at the generator's own coverage, the assembly
+# engine's 1.5 Mb (tests/test_asm.py's 2 Mb for the diploid pair) and the
+# cnv engine's 8 x 1.5 Mb.
+COHORT_DATASETS = {
+    "cohort": ("make_population_cohort", {}),
+    "somatic": ("make_somatic_pair_dataset", dict(
+        n_contigs=8, contig_len=1_500_000, pairs_per_contig=21_000)),
+    "asm": ("make_asm_indel_dataset", dict(contig_len=1_500_000)),
+    "asm diploid": ("make_asm_diploid_dataset", dict(name="asmd")),
+    "asm families": ("make_asm_split_dataset", dict(name="asmf")),
+    "cnv": ("make_multi_contig_del_dataset", dict(
+        n_contigs=8, contig_len=1_500_000, pairs_per_contig=40_000,
+        name="cnvd")),
+}
+
+
+def cohort_workflows(made, p) -> dict:
+    """The workflows of phase 5, by name: [(step label, argv), ...].
+    "{}" in a path marks an output (cuda on the card, cpu on the host);
+    each step reads the card's outputs of the steps before it."""
+    bams, fa, _ = made["cohort"]
+    tumor, control, sfa, _g, _s = made["somatic"]
+    abam, afa, _ = made["asm"]
+    (h1, h2), dfa, _ = made["asm diploid"]
+    fams, ffa, _ = made["asm families"]
+    cbam, cfa, _ = made["cnv"]
+    cbam2 = p("cnvd2.bam")
+    disc = [p(f"coh_s{i:03d}.{{}}.bcf") for i in range(len(bams))]
+    card = [d.replace("{}", "cuda") for d in disc]
+    return {
+        "cohort": [("sr", ["sr", "-g", fa, "-o", d, b])
+                   for d, b in zip(disc, bams)] + [
+            ("merge", ["merge", "-o", p("coh_sites.{}.bcf"), *card]),
+            ("sr -v", ["sr", "-v", p("coh_sites.cuda.bcf"), "-g", fa, "-o",
+                       p("coh_geno.{}.bcf"), *bams]),
+            ("filter -f germline", ["filter", "-f", "germline", "-o",
+                                    p("coh_germ.{}.bcf"),
+                                    p("coh_geno.cuda.bcf")])],
+        "somatic": [
+            ("sr", ["sr", "-g", sfa, "-o", p("som_joint.{}.bcf"), tumor,
+                    control]),
+            ("filter -f somatic", ["filter", "-f", "somatic", "-s",
+                                   p("som_samples.tsv"), "-o",
+                                   p("som_kept.{}.bcf"),
+                                   p("som_joint.cuda.bcf")])],
+        "asm": [
+            ("squashed", ["asm", "-g", afa, "-o", p("asm.{}.vcf"), abam]),
+            ("diploid", ["asm", "-y", "diploid", "-g", dfa, "-o",
+                         p("asmd.{}.vcf"), h1, h2]),
+            ("families", ["asm", "-g", ffa, "-o", p("asmf.{}.vcf"),
+                          *fams])],
+        "cnv": [
+            ("cnv -c -u", ["cnv", "-g", cfa, "-c", p("cnv_cov.{}.gz"), "-u",
+                           p("cnv_seg.{}.gz"), "--statsfile",
+                           p("cnv_stats.{}.gz"), "-o", p("cnv1.{}.bcf"),
+                           cbam]),
+            ("cnv second sample", ["cnv", "-g", cfa, "-o", p("cnv2.{}.bcf"),
+                                   cbam2]),
+            # -q 2: a loss seen in both samples is a site. merge's
+            # default (10 samples, or UNIQ >= 0.75) drops every hole of
+            # this genome: with no read inside, most hole calls carry
+            # UNIQ=-1
+            ("merge -e -y 0 -q 2", ["merge", "-e", "-y", "0", "-q", "2",
+                                    "-o", p("cnv_sites.{}.bcf"),
+                                    p("cnv1.cuda.bcf"),
+                                    p("cnv2.cuda.bcf")]),
+            ("cnv -v", ["cnv", "-g", cfa, "-v", p("cnv_sites.cuda.bcf"),
+                        "-o", p("cnv_geno.{}.bcf"), cbam])],
+    }
+
+
+def cohort_score(sites, germ, truth, n_samples) -> dict:
+    """Site recall and precision of the germline-filtered DELs against the
+    population truth, and genotype agreement at the called truth sites,
+    as bench_e2e.py run_cohort_bench computes them (a call matches a
+    truth site within 100 bp of its start); beside them the truth sites
+    in the merged site list (those with a carrier), and the truth sites
+    that the germline filter should keep: those with a carrier and a
+    non-carrier (a DEL's read-depth ratio needs 0/0 samples) that pass
+    its excess-heterozygosity gate. Every carrier of the cohort is
+    heterozygous, so a site carried by nearly every sample fails that
+    gate (models/filter.py: refined, FIC < 0 and an HWE p-value below
+    -w); it is computed here from the carriers alone, with the filter's
+    own site_stats on clean genotype likelihoods."""
+    from delly_tpu_torch.models.filter import FilterConfig, site_stats
+
+    cfg = FilterConfig()
+
+    def calls_of(path):
+        return [(r[0], int(r[1]), [f.split(":")[0] for f in r[9:]])
+                for r in records(path) if "SVTYPE=DEL" in r[7]]
+
+    def hit(calls, chrom, bp1):
+        return [gts for c, pos, gts in calls if c == chrom
+                and abs(pos - bp1) < 100]
+
+    merged, calls = calls_of(sites), calls_of(germ)
+    tp = gt_ok = gt_all = in_sites = carried = 0
+    kept, called = set(), set()
+    for k, (chrom, bp1, _bp2, _af, carriers) in enumerate(truth):
+        in_sites += bool(hit(merged, chrom, bp1))
+        carried += bool(carriers)
+        gl = [[1e-9, 1.0, 1e-9] if s in carriers else [1.0, 1e-9, 1e-12]
+              for s in range(n_samples)]
+        _a, _m, fic, _r, pval = site_stats(gl, cfg.epsilon, cfg.maxiter)
+        if 0 < len(carriers) < n_samples and not (fic < 0
+                                                   and pval < cfg.hwe):
+            kept.add(k)
+        found = hit(calls, chrom, bp1)
+        if not found:
+            continue
+        tp += 1
+        called.add(k)
+        for s, gt in enumerate(found[0]):
+            gt_all += 1
+            gt_ok += (gt in ("0/1", "1/1")) == (s in carriers)
+    good = sum(any(c == tc and abs(pos - a) < 100
+                   for tc, a, _b, _af, _car in truth) for c, pos, _g in calls)
+    return {"tp": tp, "truth": len(truth), "good": good, "calls": len(calls),
+            "gt_ok": gt_ok, "gt_all": gt_all, "in_sites": in_sites,
+            "carried": carried, "kept": len(kept),
+            "called_is_kept": called == kept}
+
+
+def run_workflow_card(wf, steps, details, wraps_for=None) -> dict:
+    """The steps of one workflow on the card, each between a reset and a
+    read of the launch counters. Prints, for each step label, its runs'
+    seconds and summed launches, and returns them by label."""
+    out = {}
+    for i, (label, argv) in enumerate(steps):
+        argv = [a.replace("{}", "cuda") for a in argv]
+        wraps = wraps_for(label) if wraps_for else ()
+        counts, _stages = run_card(argv, details, f"{wf} {label} {i}", wraps,
+                                   quiet=True)
+        agg = out.setdefault(label, {"runs": 0, "s": 0.0, "launches": {}})
+        agg["runs"] += 1
+        agg["s"] += details["runs"][f"{wf} {label} {i}"]["wall_s"]
+        for k, v in counts.items():
+            agg["launches"][k] = agg["launches"].get(k, 0) + v
+    for label, agg in out.items():
+        runs = f"{agg['runs']} x " if agg["runs"] > 1 else ""
+        print(f"{wf}: {runs}{label}: {agg['s']:.3f}s on the card, launches "
+              f"{agg['launches']}")
+        need(agg["launches"]["host_routes"] == 0
+             and agg["launches"]["rowscan"] == 0,
+             f"{wf} {label}: host routes or row-scan batches")
+    details.setdefault("cohort_steps", {})[wf] = out
+    return out
+
+
+def phase_cohort(dev, work, details, gen) -> tuple:
+    """The cohort commands on the card: the germline workflow over a
+    50-sample cohort (per-sample `sr`, `merge`, one joint `sr -v` over
+    every BAM, `filter -f germline`), the somatic workflow over a
+    tumor/control pair (joint `sr`, `filter -f somatic`), `asm` (squashed,
+    diploid, and the split-alignment families, whose K1 launches are held
+    to the plain version), and `cnv` with its cohort step (`cnv -c -u`,
+    a second sample, `merge -e -y 0 -q 2`, `cnv -v`). Checks each against
+    its truth, K1's launches in the joint `sr -v` and in the families run, and
+    no host route or row-scan batch anywhere. Returns (launches by step,
+    the workflows for the CPU runs, K1's asm numbers). `gen` is the
+    cohort future of start_datasets."""
+    from delly_tpu_torch import native
+    from delly_tpu_torch.ops import myers_cuda
+
+    t0 = time.time()
+    made = gen.result()
+    details["cohort_gen_s"] = made["seconds"]
+    print(f"datasets: cohort ({len(made['cohort'][0])} samples), somatic "
+          f"pair, asm and cnv generated in {made['seconds']:.1f}s beside the "
+          f"earlier phases; waited {time.time() - t0:.1f}s for them")
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+    shutil.copy(made["cnv"][0], p("cnvd2.bam"))
+    shutil.copy(made["cnv"][0] + ".bai", p("cnvd2.bam.bai"))
+    with open(p("som_samples.tsv"), "w") as fh:
+        fh.write("tumor\ttumor\ncontrol\tcontrol\n")
+    # coral.py and models/cnv.py take the native host helpers when the
+    # library loads (phase 1 requires it), else their Python fallbacks
+    route = "native" if native.get_lib() is not None else "python"
+    print(f"cnv host helpers: the {route} route (cov_rows, rd_windows, "
+          f"cnv_segment_core, cnv_gt_core)")
+    details["cnv_host_route"] = route
+    flows = cohort_workflows(made, p)
+    record = []
+
+    def asm_wraps(label):
+        return ([(myers_cuda, "myers", recorder(record))]
+                if label == "families" else ())
+
+    steps = {wf: run_workflow_card(wf, flows[wf], details,
+                                   asm_wraps if wf == "asm" else None)
+             for wf in flows}
+    need(steps["cohort"]["sr -v"]["launches"]["myers"] > 0,
+         "cohort sr -v: myers never launched")
+    need(steps["asm"]["families"]["launches"]["myers"] > 0 and record,
+         "asm families: myers never launched")
+    k1_asm = check_recorded_k1(dev, record, "asm families")
+
+    # truth
+    checks = {}
+    bams, _fa, truth = made["cohort"]
+    sc = cohort_score(p("coh_sites.cuda.bcf"), p("coh_germ.cuda.bcf"), truth,
+                      len(bams))
+    print(f"cohort: germline sites recall {sc['tp']}/{sc['truth']}, "
+          f"precision {sc['good']}/{sc['calls']}, genotypes "
+          f"{sc['gt_ok']}/{sc['gt_all']} agree with the carriers; merged "
+          f"sites hold {sc['in_sites']} of the {sc['carried']} truth sites "
+          f"with a carrier; {sc['kept']} have a non-carrier and pass the "
+          f"excess-heterozygosity gate on their carriers alone, and the "
+          f"called ones are those: {sc['called_is_kept']}")
+    checks["cohort"] = sc
+    need(sc["in_sites"] == sc["carried"] and sc["called_is_kept"]
+         and sc["good"] == sc["calls"] and sc["gt_ok"] == sc["gt_all"],
+         "cohort truth check")
+    kept = {(r[0], int(r[1])) for r in records(p("som_kept.cuda.bcf"))}
+    joint = records(p("som_joint.cuda.bcf"))
+    _t, _c, _fa, germ, soma = made["somatic"]
+    som_ok = all(any(c == cn and abs(pos - a) < 60 for c, pos in kept)
+                 for cn, a, _b in soma)
+    germ_out = not any(any(c == cn and abs(pos - a) < 60 for c, pos in kept)
+                       for cn, a, _b in germ)
+    print(f"somatic: {len(joint)} joint calls, {len(kept)} kept; every "
+          f"somatic DEL kept: {som_ok}; every germline DEL dropped: "
+          f"{germ_out}")
+    checks["somatic"] = {"joint": len(joint), "kept": len(kept)}
+    need(len(joint) == len(germ) + len(soma) and som_ok and germ_out,
+         "somatic truth check")
+    calls = vcf_calls(p("asm.cuda.vcf"))
+    hits = sum(any(c[0] == svt and abs(c[2] - pos) < 50 for c in calls)
+               for svt, pos in made["asm"][2])
+    dip = {c[0]: c for c in vcf_calls(p("asmd.cuda.vcf"))}
+    (_d, dpos, _x), (_i, ipos, _y) = made["asm diploid"][2]
+    dip_ok = (set(dip) == {"DEL", "INS"} and abs(dip["DEL"][2] - dpos) < 50
+              and dip["DEL"][4] == "1/1" and abs(dip["INS"][2] - ipos) < 50
+              and dip["INS"][4] in ("1|0", "0|1"))
+    fam = vcf_calls(p("asmf.cuda.vcf"))
+    # a BND may be written at either of its two ends
+    fam_ok = all(any(c[0] == svt and c[1] == e and abs(c[2] - x) < 100
+                     for c in fam for e, x in zip(ends[::2], ends[1::2]))
+                 for svt, *ends in made["asm families"][2])
+    print(f"asm: squashed {hits}/2 within 50 bp ({len(calls)} calls); "
+          f"diploid genotypes { {k: c[4] for k, c in dip.items()} }; families "
+          f"{sorted({c[0] for c in fam})} called at their breakpoints: "
+          f"{fam_ok}")
+    checks["asm"] = {"squashed_hits": hits, "diploid_ok": dip_ok,
+                     "families_ok": fam_ok}
+    need(hits == len(calls) == 2 and dip_ok and fam_ok, "asm truth check")
+    cnv = records(p("cnv1.cuda.bcf"))
+    n_contigs = COHORT_DATASETS["cnv"][1]["n_contigs"]
+    clen = COHORT_DATASETS["cnv"][1]["contig_len"]
+    lo, hi = clen * 4 // 5, clen * 4 // 5 + min(60_000, clen // 10)
+    holes = sum(any(r[0] == f"chr{c + 1}" and int(r[1]) < hi
+                    and int(r[7].split("END=")[1].split(";")[0]) > lo
+                    for r in cnv)
+                for c in range(n_contigs))
+    sites = records(p("cnv_sites.cuda.bcf"))
+    geno = records(p("cnv_geno.cuda.bcf"))
+    rdcn = sum(dict(zip(r[8].split(":"), r[9].split(":"))).get("RDCN", "")
+               not in ("", ".") for r in geno)
+    print(f"cnv: {len(cnv)} calls, read-depth holes called {holes}/"
+          f"{n_contigs} (bench_e2e.py's check); merge -e {len(sites)} "
+          f"sites, cnv -v {rdcn}/{len(geno)} with a copy number")
+    checks["cnv"] = {"calls": len(cnv), "holes": holes, "sites": len(sites),
+                     "genotyped": rdcn}
+    need(holes == n_contigs == len(sites) and rdcn == len(geno) == len(sites),
+         "cnv truth check")
+    details["cohort_truth"] = checks
+    launches = {f"{wf} {label}": agg["launches"]
+                for wf, by in steps.items() for label, agg in by.items()}
+    k1 = {"asm_launches": k1_asm["launches"],
+          "asm_pairs_by_shape": k1_asm["pairs_by_shape"],
+          "asm_largest_launch": k1_asm["largest"]}
+    return launches, flows, k1
+
+
+def run_workflow(path) -> None:
+    """Runs one workflow's steps ({"steps": [[label, argv], ...], "out":
+    path}) through the CLI in this process, one after the other, and
+    writes each step's seconds to "out". The CPU runs of phase 5 call
+    this in a process of their own."""
+    from delly_tpu_torch.cli import main
+
+    with open(path) as fh:
+        job = json.load(fh)
+    secs = []
+    for label, argv in job["steps"]:
+        t0 = time.time()
+        rc = main(argv)
+        secs.append([label, time.time() - t0])
+        if rc:
+            sys.exit(rc)
+    with open(job["out"], "w") as fh:
+        json.dump(secs, fh)
+
+
+def start_cpu_workflows(flows: dict, p) -> list:
+    """Starts each workflow on the host, one process per workflow that
+    runs its steps one after the other: [(name, process, seconds file,
+    stderr file, t0, end times)]."""
+    runs = []
+    for wf, steps in flows.items():
+        job, secs = p(f"workflow.{wf}.json"), p(f"workflow.{wf}.s.json")
+        with open(job, "w") as fh:
+            json.dump({"out": secs, "steps": [
+                [label, [a.replace("{}", "cpu") for a in argv]]
+                for label, argv in steps]}, fh)
+        err_path = p(f"stderr.workflow.{wf}.txt")
+        proc, t0, ends = start_host(
+            ["-c", "import sys, chip_smoke; "
+                   "chip_smoke.run_workflow(sys.argv[1])", job], err_path)
+        runs.append((wf, proc, secs, err_path, t0, ends))
+    return runs
+
+
+def finish_cpu_workflows(runs: list, flows: dict, details) -> None:
+    """Waits for the CPU workflows, prints their seconds per step label,
+    and checks that every card output equals its CPU run's, compared as
+    the tests compare them (output_lines)."""
+    for wf, proc, secs_path, err_path, t0, ends in runs:
+        wall = wait_host(wf, proc, err_path, t0, ends)
+        with open(secs_path) as fh:
+            secs = json.load(fh)
+        by = {}
+        for label, sec in secs:
+            by[label] = by.get(label, 0.0) + sec
+        print(f"{wf} on cpu: process wall {wall:.3f}s; " + ", ".join(
+            f"{label} {sec:.3f}s" for label, sec in by.items()))
+        details.setdefault("cpu_workflows", {})[wf] = {
+            "process_wall_s": wall, "steps_s": by}
+    for wf, steps in flows.items():
+        n = 0
+        for _label, argv in steps:
+            for out in (a for a in argv if "{}" in a):
+                a, b = (output_lines(out.replace("{}", dv))
+                        for dv in ("cuda", "cpu"))
+                need(a == b, f"{os.path.basename(out)}: card and cpu outputs "
+                             f"differ")
+                n += 1
+        print(f"{wf}: {n} card outputs == cpu outputs")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1508,31 +1909,37 @@ def main() -> int:
     os.environ["DELLY_TPU_TORCH_DEVICE"] = "cuda"
     t0 = time.time()
     cpu_runs = []
-    lr_pool = None
+    pool = None
     try:
         k3_count, probe_lib = phase_build(details)
         sass_loops = kernel_sass(details, k3_count)
         step_ns = phase_probes(dev, probe_lib, details)
-        lr_pool, lr_gen = start_lr_datasets(work)
+        pool, gen = start_datasets(work)
         rng = np.random.default_rng(SEED)
         k1 = check_myers(dev, rng, details)
         k2, tb = check_gotoh(dev, rng, details, step_ns)
         launches, k3_launches, cmds = phase_e2e(work, details)
         phase_host_dp(work, details)
-        lr_launches, lr_cmds, k1_lr = phase_lr(dev, work, details, lr_gen)
+        lr_launches, lr_cmds, k1_lr = phase_lr(dev, work, details, gen["lr"])
         launches.update(lr_launches)
         cmds.update(lr_cmds)
-        # the same commands on the host (the plain versions), all at once
-        # in the background while the K3/K3-tb checks and timings run
+        co_launches, flows, k1_asm = phase_cohort(dev, work, details,
+                                                  gen["cohort"])
+        launches.update(co_launches)
+        # the same commands and workflows on the host (the plain
+        # versions), all at once in the background while the K3/K3-tb
+        # checks and timings run
         p = lambda name: os.path.join(work, name)  # noqa: E731
         cpu_runs = start_cpu_runs(cmds, p)
+        cpu_runs += start_cpu_workflows(flows, p)
         err3 = check_banded(dev, rng, details)
         k3, k3tb = measure_banded(dev, k3_launches, err3, sass_loops,
                                   step_ns)
-        finish_cpu_runs(cpu_runs, cmds, details)
+        finish_cpu_runs(cpu_runs[:len(cmds)], cmds, details)
+        finish_cpu_workflows(cpu_runs[len(cmds):], flows, details)
     finally:
-        if lr_pool is not None:
-            lr_pool.shutdown(cancel_futures=True)
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
         for run in cpu_runs:
             if run[1].poll() is None:
                 run[1].kill()
@@ -1546,7 +1953,8 @@ def main() -> int:
     kernels = []
     for name, src, rep, meas in (
             ("myers", "delly_tpu_torch/csrc/myers.cu",
-             "delly_tpu/ops/myers_pallas.py:247", {**k1, **k1_lr}),
+             "delly_tpu/ops/myers_pallas.py:247",
+             {**k1, **k1_lr, **k1_asm}),
             ("gotoh", "delly_tpu_torch/csrc/gotoh.cu",
              "delly_tpu/ops/gotoh_pallas.py:52", k2),
             ("gotoh_tb", "delly_tpu_torch/csrc/gotoh_tb.cu",
@@ -1567,7 +1975,7 @@ def main() -> int:
             "shapes": meas["shapes"],
             **{k: v for k, v in meas.items() if k.startswith(
                 ("row_loop", "launch_ms", "longest", "smem_step",
-                 "chain_floor", "case_", "device_ms", "lr_"))}})
+                 "chain_floor", "case_", "device_ms", "lr_", "asm_"))}})
     details["kernels"] = kernels
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:

@@ -1,12 +1,21 @@
 """Command-line interface of the PyTorch port.
 
-Reference: src/delly.cpp (dispatch). The port serves the ``sr`` word
-(short-read SV discovery and genotyping, and re-genotyping with ``-v``)
-and the ``lr`` word (long-read SV discovery and genotyping, with
-methylation, HP/PS phasing, ``-l`` alternate alignments and
-re-genotyping with ``-v``) on the run's device
-(``DELLY_TPU_TORCH_DEVICE``, ``cuda`` by default). The other words of
-the JAX package's CLI are not ported yet and exit with status 1.
+Reference: src/delly.cpp (dispatch). The port serves every word of the
+JAX package's CLI, with the same options and defaults:
+
+- ``sr``: short-read SV discovery and genotyping (re-genotyping with
+  ``-v``);
+- ``lr``: long-read SV discovery and genotyping, with methylation,
+  HP/PS phasing, ``-l`` alternate alignments and re-genotyping with
+  ``-v``;
+- ``asm``: SV discovery in haplotype assemblies (squashed or diploid);
+- ``cnv``: read-depth CNV discovery and genotyping (``-v``);
+- ``merge``: one site list from many samples' BCFs (``-e`` for CNVs);
+- ``filter``: germline or somatic (tumor/control) filtering.
+
+``sr``, ``lr``, ``asm`` and ``cnv`` run on the run's device
+(``DELLY_TPU_TORCH_DEVICE``, ``cuda`` by default), resolved before any
+work; ``merge`` and ``filter`` are host commands and resolve none.
 
     python -m delly_tpu_torch.cli sr -g ref.fa -o out.vcf sample.bam
     python -m delly_tpu_torch.cli lr -g ref.fa -o out.vcf sample.bam
@@ -17,9 +26,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-
-NOT_PORTED = ("asm", "cnv", "merge", "filter")
-
 
 def _startup_checks(genome: str | None = None, files=(), exclude: str = "",
                     vcffile: str = "", alignment: bool = True) -> int:
@@ -190,6 +196,131 @@ def _svtypes_to_set(svtype: str) -> set:
     return out
 
 
+def _add_cnv(sub):
+    p = sub.add_parser("cnv", help="CNV discovery (read-depth)")
+    p.add_argument("-g", "--genome", required=True)
+    p.add_argument("-q", "--quality", type=int, default=10)
+    p.add_argument("-o", "--outfile", default="-")
+    p.add_argument("-c", "--covfile", default="")
+    p.add_argument("-u", "--segmentation", default="")
+    p.add_argument("-z", "--cnv-size", type=int, default=1000)
+    p.add_argument("-v", "--vcffile", default="")
+    p.add_argument("--minclip", type=int, default=25)
+    p.add_argument("--minrefsep", type=int, default=30)
+    p.add_argument("--min-bp-support", type=int, default=3)
+    p.add_argument("--penalty", type=float, default=3.0)
+    p.add_argument("--cnv-merge", type=float, default=0.25)
+    p.add_argument("--cnv-min-callable", type=float, default=0.75)
+    p.add_argument("-y", "--ploidy", type=float, default=2.0)
+    p.add_argument("-p", "--purity", type=float, default=1.0)
+    p.add_argument("--ctrl-ploidy", type=float, default=2.0)
+    p.add_argument("--haploid-chr", default="")
+    p.add_argument("-w", "--window", type=int, default=0)
+    p.add_argument("--fraction-unique", type=float, default=0.8)
+    p.add_argument("--basecov", action="store_true")
+    p.add_argument("--fragmentcov", action="store_true")
+    p.add_argument("--no-regional-gc", action="store_true")
+    p.add_argument("--fragment", type=float, default=0.97)
+    p.add_argument("--statsfile", default="")
+    p.add_argument("--window-offset", type=int, default=0)
+    p.add_argument("--fraction-window", type=float, default=0.25)
+    p.add_argument("--mapq-uniq", type=int, default=20)
+    p.add_argument("--target-reads", type=int, default=150)
+    p.add_argument("--scan-window", type=int, default=None)
+    p.add_argument("--scan-regions", default="")
+    p.add_argument("--mad-cutoff", type=int, default=3)
+    p.add_argument("--percentile", type=float, default=0.0005)
+    p.add_argument("--no-window-selection", action="store_true")
+    p.add_argument("input_file")
+    return p
+
+
+def _add_asm(sub):
+    p = sub.add_parser("asm", help="SV discovery in assemblies")
+    p.add_argument("-t", "--svtype", default="ALL")
+    p.add_argument("-g", "--genome", required=True)
+    p.add_argument("-y", "--mode", default="squashed",
+                   choices=["squashed", "diploid"])
+    p.add_argument("-o", "--outfile", default="-")
+    p.add_argument("-q", "--map-qual", type=int, default=10)
+    p.add_argument("-c", "--minclip", type=int, default=25)
+    p.add_argument("-m", "--minrefsep", type=int, default=30)
+    p.add_argument("-n", "--maxreadsep", type=int, default=100)
+    p.add_argument("-w", "--cons-window", type=int, default=1000)
+    p.add_argument("-f", "--flank-size", type=int, default=100)
+    p.add_argument("-a", "--flank-quality", type=float, default=0.9)
+    p.add_argument("-i", "--indel-size", type=int, default=10000)
+    p.add_argument("input_files", nargs="+")
+    return p
+
+
+def _add_merge(sub):
+    p = sub.add_parser("merge", help="merge SV site lists")
+    p.add_argument("-g", "--genome", default="")
+    p.add_argument("-o", "--outfile", default="-")
+    p.add_argument("-y", "--quality", type=int, default=200)
+    p.add_argument("-q", "--recurrent", type=int, default=10)
+    p.add_argument("-u", "--chunks", type=int, default=500)
+    p.add_argument("-a", "--vaf", type=float, default=0.15)
+    p.add_argument("-v", "--coverage", type=int, default=5)
+    p.add_argument("-m", "--minsize", type=int, default=0)
+    p.add_argument("-n", "--maxsize", type=int, default=1000000)
+    p.add_argument("-e", "--cnvmode", action="store_true")
+    p.add_argument("-c", "--precise", action="store_true")
+    p.add_argument("-p", "--pass", dest="pass_only", action="store_true")
+    p.add_argument("-b", "--bp-offset", type=int, default=1000)
+    p.add_argument("-r", "--rec-overlap", type=float, default=0.8)
+    p.add_argument("--rep-min-af", type=float, default=0.005)
+    p.add_argument("--mei-offset", type=int, default=50)
+    p.add_argument("--mei-sizeratio", type=float, default=0.85)
+    p.add_argument("--mei-seqid", type=float, default=0.8)
+    p.add_argument("--tr-offset", type=int, default=200)
+    p.add_argument("--tr-frac", type=float, default=0.25)
+    p.add_argument("--tr-seqid", type=float, default=0.7)
+    p.add_argument("--norm-frac", type=float, default=0.5)
+    p.add_argument("--junc-seqid", type=float, default=0.7)
+    p.add_argument("--seq-cutoff", type=int, default=10000)
+    p.add_argument("--cnv-large-size", type=int, default=200000)
+    p.add_argument("--cnv-min-uniq", type=float, default=0.75)
+    p.add_argument("--cnv-gain-uniq", type=float, default=0.9)
+    p.add_argument("input_files", nargs="+")
+    return p
+
+
+def _add_filter(sub):
+    p = sub.add_parser("filter", help="somatic/germline filtering")
+    p.add_argument("-f", "--filter", default="somatic",
+                   choices=["somatic", "germline"])
+    p.add_argument("-o", "--outfile", default="-")
+    p.add_argument("-m", "--minsize", type=int, default=0)
+    p.add_argument("-n", "--maxsize", type=int, default=500000000)
+    p.add_argument("-y", "--quality", type=int, default=300)
+    p.add_argument("-a", "--altaf", type=float, default=0.03)
+    p.add_argument("-r", "--ratiogeno", type=float, default=0.75)
+    p.add_argument("-p", "--pass", dest="pass_only", action="store_true")
+    p.add_argument("-t", "--tag", action="store_true")
+    p.add_argument("-s", "--samples", default="")
+    p.add_argument("-v", "--coverage", type=int, default=10)
+    p.add_argument("-c", "--controlcont", type=float, default=0.0)
+    p.add_argument("--pgerm", type=float, default=0.001)
+    p.add_argument("--cn-offset", type=float, default=0.2)
+    p.add_argument("-e", "--rddel", type=float, default=0.8)
+    p.add_argument("-u", "--rddup", type=float, default=1.2)
+    p.add_argument("-j", "--genogq", type=float, default=10)
+    p.add_argument("--rdist", type=int, default=250)
+    p.add_argument("--rsize", type=float, default=0.8)
+    p.add_argument("--maxsd", type=float, default=0.5)
+    p.add_argument("--cnv-ploidy", type=int, default=2)
+    p.add_argument("--cnv-reciprocal", type=float, default=0.8)
+    p.add_argument("-w", "--hwe", type=float, default=0.000001)
+    p.add_argument("--no-collapse", action="store_true")
+    p.add_argument("--no-refine", action="store_true")
+    p.add_argument("--rcorr", type=float, default=0.8)
+    p.add_argument("--rminshared", type=int, default=20)
+    p.add_argument("input_file")
+    return p
+
+
 def main(argv=None) -> int:
     # Optional run profile: DELLY_TPU_PROFILE=<path> writes a JSON
     # stage profile (per-stage wall seconds from the stage banners).
@@ -213,10 +344,6 @@ def _dispatch(argv=None) -> int:
             return 0
         if word in ("help", "-?"):
             argv = ["--help"]
-        if word in NOT_PORTED:
-            print(f"{word}: not yet in the PyTorch port (use "
-                  f"python -m delly_tpu.cli {word})", file=sys.stderr)
-            return 1
     parser = argparse.ArgumentParser(
         prog="delly-tpu-torch",
         description="Structural variant discovery and genotyping on "
@@ -226,6 +353,10 @@ def _dispatch(argv=None) -> int:
     sub = parser.add_subparsers(dest="command")
     _add_sr(sub)
     _add_lr(sub)
+    _add_cnv(sub)
+    _add_asm(sub)
+    _add_merge(sub)
+    _add_filter(sub)
     args, _extra = parser.parse_known_args(argv)
     if args.command is None:
         parser.print_help()
@@ -234,16 +365,50 @@ def _dispatch(argv=None) -> int:
 
 
 def _run_command(args) -> int:
-    if args.command not in ("sr", "lr"):
+    # The JAX package runs merge, filter and asm in process 0 only of a
+    # process world; the port runs one process (hostaxis.maybe_init
+    # refuses more), so every command runs here.
+    if args.command == "merge":
+        return _run_merge(args)
+    if args.command == "filter":
+        return _run_filter(args)
+    if args.command == "cnv":
+        files = [args.input_file]
+        rc = (_startup_checks(args.genome, files, vcffile=args.vcffile)
+              or _check_bam_headers(files, args.genome))
+    elif args.command == "asm":
+        rc = (_startup_checks(args.genome, args.input_files)
+              or _check_bam_headers(args.input_files, args.genome))
+        if not rc and args.mode == "diploid" and len(args.input_files) % 2:
+            print("Diploid mode expects an even number of BAM files "
+                  "(hap1 hap2 per sample).", file=sys.stderr)
+            rc = 1
+    elif args.command in ("sr", "lr"):
+        rc = (_startup_checks(args.genome, args.input_files, args.exclude,
+                              args.vcffile)
+              or _check_bam_headers(args.input_files, args.genome))
+    else:
         raise SystemExit(f"Unknown subcommand: {args.command}")
-    rc = (_startup_checks(args.genome, args.input_files, args.exclude,
-                          args.vcffile)
-          or _check_bam_headers(args.input_files, args.genome))
     if rc:
         return rc
     # resolve the device before any work: cuda without a card raises
     from delly_tpu_torch.utils import torchenv
     torchenv.device()
+    if args.command == "cnv":
+        return _run_cnv(args)
+    if args.command == "asm":
+        from delly_tpu_torch.models.asmode import AsmConfig, run_asm
+        cfg = AsmConfig(
+            genome=args.genome, files=args.input_files,
+            outfile=args.outfile, svtset=_svtypes_to_set(args.svtype),
+            mode=args.mode, min_map_qual=args.map_qual,
+            min_clip=args.minclip, min_ref_sep=args.minrefsep,
+            max_read_sep=args.maxreadsep,
+            min_cons_window=args.cons_window,
+            min_flank_size=args.flank_size,
+            flank_quality=args.flank_quality,
+            indelsize=args.indel_size)
+        return run_asm(cfg)
     if args.command == "sr":
         from delly_tpu_torch.models.config import SrConfig
         from delly_tpu_torch.models.sr import run_sr
@@ -290,6 +455,106 @@ def _run_command(args) -> int:
         import numpy as _np
         cfg.indel_extension = float(_np.float32(args.extension))
     return run_lr(cfg)
+
+
+def _run_cnv(args) -> int:
+    from delly_tpu_torch.models.coral import CnvConfig, run_cnv
+    basecov_flag = "auto"
+    if args.basecov:
+        basecov_flag = "base"
+    elif args.fragmentcov:
+        basecov_flag = "fragment"
+    cfg = CnvConfig(
+        genome=args.genome, bam_file=args.input_file,
+        outfile=args.outfile, covfile=args.covfile,
+        segfile=args.segmentation, genofile=args.vcffile,
+        stats_file=args.statsfile, scan_file=args.scan_regions,
+        min_qual=args.quality, min_cnv_size=args.cnv_size,
+        min_clip=args.minclip, min_ref_sep=args.minrefsep,
+        min_bp_support=args.min_bp_support, penalty=args.penalty,
+        cn_merge_tol=args.cnv_merge,
+        cn_min_callable=args.cnv_min_callable,
+        ploidy=args.ploidy, purity=args.purity,
+        ctrl_ploidy=args.ctrl_ploidy, haploid_chr=args.haploid_chr,
+        window_size=args.window, window_offset=args.window_offset,
+        scan_window=(args.scan_window if args.scan_window is not None
+                     else 10000),
+        scan_window_user_set=args.scan_window is not None,
+        unique_to_total_cov_ratio=args.fraction_unique,
+        fragment_unique=args.fragment, frac_window=args.fraction_window,
+        mapq_uniq=args.mapq_uniq, target_reads=args.target_reads,
+        mad=args.mad_cutoff, exclgc=args.percentile,
+        no_scan_window_selection=args.no_window_selection,
+        regional_gc=not args.no_regional_gc,
+        basecov_flag=basecov_flag)
+    return run_cnv(cfg)
+
+
+def _run_merge(args) -> int:
+    files = args.input_files
+    # one input that is no VCF/BCF is a file list: run_merge checks each
+    # path it lists
+    if len(files) > 1 or files[0].endswith((".bcf", ".vcf", ".vcf.gz")):
+        rc = _startup_checks(files=files, alignment=False)
+        if rc:
+            return rc
+    from delly_tpu_torch.models.merge import MergeConfig, run_merge
+    cfg = MergeConfig(
+        files=args.input_files, outfile=args.outfile,
+        genome=args.genome, qualthres=args.quality,
+        recurrent_samples=args.recurrent, chunksize=args.chunks,
+        vaf=args.vaf, coverage=args.coverage, minsize=args.minsize,
+        maxsize=args.maxsize, cnv_mode=args.cnvmode,
+        filter_for_precise=args.precise,
+        filter_for_pass=args.pass_only, bpoffset=args.bp_offset,
+        recoverlap=args.rec_overlap, rep_min_af=args.rep_min_af,
+        mei_offset=args.mei_offset, mei_size_ratio=args.mei_sizeratio,
+        mei_seq_id=args.mei_seqid, tr_offset=args.tr_offset,
+        tr_frac=args.tr_frac, tr_seq_id=args.tr_seqid,
+        norm_frac=args.norm_frac, junc_seq_id=args.junc_seqid,
+        seq_cutoff=args.seq_cutoff, cnv_large_size=args.cnv_large_size,
+        cnv_min_uniq=args.cnv_min_uniq,
+        cnv_gain_uniq=args.cnv_gain_uniq)
+    return run_merge(cfg)
+
+
+def _run_filter(args) -> int:
+    rc = _startup_checks(files=[args.input_file], alignment=False)
+    if rc:
+        return rc
+    from delly_tpu_torch.models.filter import (
+        FilterConfig, filter_run, parse_sample_file,
+    )
+    tumor_set = set()
+    control_set = set()
+    if args.filter == "somatic":
+        if not args.samples:
+            print("Somatic filtering requires a sample file (-s)",
+                  file=sys.stderr)
+            return 1
+        tumor_set, control_set = parse_sample_file(args.samples)
+        if not tumor_set:
+            print("No tumor samples specified.", file=sys.stderr)
+            return 1
+        if not control_set:
+            print("No control samples specified.", file=sys.stderr)
+            return 1
+    cfg = FilterConfig(
+        vcffile=args.input_file, outfile=args.outfile,
+        samplefile=args.samples, filter=args.filter,
+        minsize=args.minsize, maxsize=args.maxsize,
+        qualthres=args.quality, altaf=args.altaf,
+        ratiogeno=args.ratiogeno, coverage=args.coverage,
+        controlcont=args.controlcont, pgerm=args.pgerm,
+        cn_offset=args.cn_offset, rddel=args.rddel, rddup=args.rddup,
+        genogq=args.genogq, rdist=args.rdist, rsize=args.rsize,
+        maxsd=args.maxsd, ploidy=args.cnv_ploidy,
+        rec_cnv=args.cnv_reciprocal, hwe=args.hwe,
+        no_collapse=args.no_collapse, no_refine=args.no_refine,
+        filter_for_pass=args.pass_only, soft_filter=args.tag,
+        rcorr=args.rcorr, rminshared=args.rminshared,
+        tumor_set=tumor_set, control_set=control_set)
+    return filter_run(cfg)
 
 
 def entry() -> None:

@@ -18,7 +18,9 @@ the JAX package's Pallas entry point sends them to its row-scan).
 Neither is a kernel, so both stand
 in ``snapshot()`` beside the kernels, not among them.
 
-This slice has no device mesh: every kernel runs on ``cuda:0``.
+The port has no device mesh yet: every kernel runs on ``cuda:0``, and
+``get_mesh()`` says so to the callers that ask (models/coral.py, which
+then runs the numpy per-window depth math).
 """
 
 from __future__ import annotations
@@ -45,3 +47,10 @@ def reset() -> None:
 def snapshot() -> dict:
     return {k: int(launches.get(k, 0))
             for k in KERNELS + ("host_routes", "rowscan")}
+
+
+def get_mesh():
+    """The active device mesh: None, one device. The JAX package's
+    sharded depth step and job batches come with multi-GPU dispatch
+    (ROADMAP queue 1, item 7)."""
+    return None

@@ -1,10 +1,10 @@
 """Synthetic BAM/FASTA datasets for runs of the PyTorch port.
 
-A copy of five generators of the repository's test BAM writer
+A copy of eight generators of the repository's test BAM writer
 (tests/bamsynth.py) and their helpers, bound to this package's io and
 utils, so that a run on the card (chip_smoke.py) can build the
-datasets without importing the JAX package; each returns (bam, fasta,
-truth):
+datasets without importing the JAX package; the first five return
+(bam, fasta, truth):
 
 - ``make_multi_sv_dataset``: every contig carries a het DEL, a tandem
   DUP, an INV and a novel INS, and contig pairs a BND, under uniform
@@ -17,10 +17,28 @@ truth):
   background reads, optionally with ONT-like substitution and 1 bp indel
   noise (``noisy_segment``);
 - ``make_deep_lr_dataset``: many het ~1 kb DELs under deep long-read
-  coverage, the long-read genotyping regime.
+  coverage, the long-read genotyping regime;
+- ``make_multi_contig_del_dataset``: a het ~8 kb DEL per contig and a
+  homozygous read-depth hole (the ``cnv`` regime);
+- ``make_population_cohort``: one BAM per sample of a cohort carrying
+  het DELs at drawn allele frequencies (``merge`` and ``filter -f
+  germline``); returns (bams, fasta, truth);
+- ``make_somatic_pair_dataset``: a tumor and a control BAM with
+  germline and tumor-only DELs (``filter -f somatic``); returns (tumor,
+  control, fasta, germline truth, somatic truth).
 
-Same seed and arguments give the same bytes as tests/bamsynth.py. One
-generator is the port's own, with no counterpart there:
+Same seed and arguments give the same bytes as tests/bamsynth.py. The
+three ``asm`` datasets are the constructions of bench_e2e.py's assembly
+run and of tests/test_asm.py, as functions:
+
+- ``make_asm_indel_dataset``: a DEL and an INS as CIGAR indels in two
+  contig-length alignments (squashed mode);
+- ``make_asm_diploid_dataset``: a homozygous DEL and a hap1-only INS in
+  two haplotype BAMs (``-y diploid``);
+- ``make_asm_split_dataset``: DUP, INV and BND as split contig
+  alignments, over two samples.
+
+One generator is the port's own, with no counterpart there:
 
 - ``make_long_split_dataset``: het DELs seen through split reads longer
   than 8,192 bases, the regime of the corridor MSA merge (K3/K3-tb).
@@ -834,3 +852,393 @@ def _merge_sorted_blobs(pos, buf, rec_w, evidence):
     if prev < len(raw):
         blobs.append(raw[prev:])
     return blobs
+
+
+def make_multi_contig_del_dataset(tmpdir, n_contigs=4, contig_len=60_000,
+                                  pairs_per_contig=900, sr_per_del=10,
+                                  pe_per_del=14, seed=77, name="multi",
+                                  error_rate=0.0):
+    """`n_contigs` contigs, one heterozygous ~8kb DEL per contig with
+    both PE (discordant spanning pairs) and SR (primary+supplementary
+    split reads) evidence, plus normal pairs for library statistics.
+    Returns (bam_path, fasta_path, truth) with truth = [(chrom_name,
+    del_start, del_end)]. Scales to benchmark size via the count
+    parameters."""
+    rng = random.Random(seed)
+    contigs = [(f"chr{c + 1}",
+                random_contig(rng, contig_len,
+                              gc_blocks=max(1, contig_len // 10_000)))
+               for c in range(n_contigs)]
+    rl = 100
+    isize = 400
+    del_len = 8000
+    truth = []
+    blobs = []
+    qid = 0
+    for tid, (cname, ref) in enumerate(contigs):
+        bp1 = contig_len * 2 // 5
+        bp2 = bp1 + del_len
+        truth.append((cname, bp1, bp2))
+        derived = ref[:bp1] + ref[bp2:]
+        # homozygous read-depth hole (a CN0 region for the cnv engine;
+        # carries no PE/SR signal so the sr truth set is unaffected)
+        hole_lo = contig_len * 4 // 5
+        hole_hi = hole_lo + min(60_000, contig_len // 10)
+        # normal pairs, bulk-vectorized (insert-size spread so MAD > 0:
+        # the scan's strict normal-insert bounds need real variance,
+        # scan.h:151)
+        g = np.random.default_rng(rng.randint(0, 2**31))
+        isz = isize + g.integers(-60, 61, size=pairs_per_contig)
+        p1 = g.integers(0, contig_len - isz.max() - 1,
+                        size=pairs_per_contig)
+        keep = ~((hole_lo - isz < p1) & (p1 < hole_hi))
+        isz, p1 = isz[keep], p1[keep]
+        ref_u8 = np.frombuffer(ref.encode(), dtype=np.uint8)
+        bpos, bbuf, rec_w = _bulk_pair_records(
+            tid, ref_u8, p1, isz, qid, rl=rl, error_rate=error_rate,
+            seed=rng.randint(0, 2**31))
+        qid += len(p1)
+        recs = []
+        # discordant pairs spanning the deletion (3to5, large insert)
+        for _ in range(pe_per_del):
+            off = rng.randint(30, 200)
+            p1 = bp1 - off - rl
+            p2 = bp2 + (isize - off - 2 * rl) + rng.randint(0, 40)
+            tl = p2 + rl - p1
+            recs.append((tid, p1, encode_record(
+                f"d{qid}", 0x61, tid, p1, 60, [("M", rl)], tid, p2,
+                tl, add_read_errors(rng, ref[p1:p1 + rl], error_rate))))
+            recs.append((tid, p2, encode_record(
+                f"d{qid}", 0x91, tid, p2, 60, [("M", rl)], tid, p1,
+                -tl, add_read_errors(rng, ref[p2:p2 + rl], error_rate))))
+            qid += 1
+        # split reads across the junction: primary M+S at bp1,
+        # supplementary S+M at bp2 (same read name -> same seed)
+        for _ in range(sr_per_del):
+            off = rng.randint(30, 70)
+            dpos = bp1 - off
+            seq = add_read_errors(rng, derived[dpos:dpos + rl], error_rate)
+            recs.append((tid, dpos, encode_record(
+                f"s{qid}", 0x0, tid, dpos, 60,
+                [("M", off), ("S", rl - off)], -1, -1, 0, seq)))
+            recs.append((tid, bp2, encode_record(
+                f"s{qid}", 0x800, tid, bp2, 60,
+                [("S", off), ("M", rl - off)], -1, -1, 0, seq)))
+            qid += 1
+        blobs += _merge_sorted_blobs(bpos, bbuf, rec_w,
+                                     [(p, b) for _t, p, b in recs])
+    bam = f"{tmpdir}/{name}.bam"
+    fa = f"{tmpdir}/{name}.fa"
+    write_bam(bam, contigs, blobs)
+    write_fasta(fa, contigs)
+    return bam, fa, truth
+
+
+def make_population_cohort(tmpdir, n_samples=50, n_contigs=2,
+                           contig_len=300_000, n_svs=30,
+                           pairs_per_contig=18_000, seed=211,
+                           name="cohort"):
+    """Population cohort over one shared genome: `n_svs` het DELs
+    with drawn allele frequencies; sample s carries SV i with
+    probability af[i]. Returns (bam_paths, fa, truth) with
+    truth = [(chrom, bp1, bp2, af, frozenset(carrier sample idx))].
+
+    The reference's germline workflow corpus (README.md:75-99):
+    per-sample discovery -> merge -> per-sample -v genotyping ->
+    sample merge -> germline filter."""
+    rng = random.Random(seed)
+    contigs = [(f"chr{c + 1}",
+                random_contig(rng, contig_len,
+                              gc_blocks=max(1, contig_len // 10_000)))
+               for c in range(n_contigs)]
+    rl, isize = 100, 400
+    # population sites: spaced DELs, sizes 500-6000, AF in [0.1, 0.9]
+    sites = []
+    per_chr = -(-n_svs // n_contigs)
+    for tid in range(n_contigs):
+        spacing = (contig_len - 40_000) // (per_chr + 1)
+        for k in range(per_chr):
+            if len(sites) >= n_svs:
+                break
+            bp1 = 20_000 + spacing * (k + 1)
+            size = 500 + (k * 997) % 5500
+            sites.append((tid, bp1, bp1 + size,
+                          0.1 + 0.8 * rng.random()))
+    carriers = [frozenset(s for s in range(n_samples)
+                          if rng.random() < af)
+                for (_t, _a, _b, af) in sites]
+    truth = [(contigs[t][0], a, b, round(af, 3), carriers[i])
+             for i, (t, a, b, af) in enumerate(sites)]
+
+    fa = f"{tmpdir}/{name}.fa"
+    write_fasta(fa, contigs)
+    bam_paths = []
+    for s in range(n_samples):
+        recs = []
+        qid = 0
+
+        def rec(tid, pos, *args):
+            recs.append((tid, pos, encode_record(*args)))
+
+        for i, (tid, bp1, bp2, _af) in enumerate(sites):
+            if s not in carriers[i]:
+                continue
+            ref = contigs[tid][1]
+            for _ in range(8):
+                off = rng.randint(30, 200)
+                p1 = bp1 - off - rl
+                p2 = bp2 + (isize - off - 2 * rl) + rng.randint(0, 40)
+                tl = p2 + rl - p1
+                rec(tid, p1, f"d{s}_{qid}", 0x61, tid, p1, 60,
+                    [("M", rl)], tid, p2, tl, ref[p1:p1 + rl])
+                rec(tid, p2, f"d{s}_{qid}", 0x91, tid, p2, 60,
+                    [("M", rl)], tid, p1, -tl, ref[p2:p2 + rl])
+                qid += 1
+            for _ in range(7):
+                off = rng.randint(30, 70)
+                dpos = bp1 - off
+                seq = ref[bp1 - off:bp1] + ref[bp2:bp2 + rl - off]
+                rec(tid, dpos, f"s{s}_{qid}", 0x0, tid, dpos, 60,
+                    [("M", off), ("S", rl - off)], -1, -1, 0, seq)
+                rec(tid, bp2, f"s{s}_{qid}", 0x800, tid, bp2, 60,
+                    [("S", off), ("M", rl - off)], -1, -1, 0, seq)
+                qid += 1
+        bulk = []
+        for tid, (cname, ref) in enumerate(contigs):
+            ref_u8 = np.frombuffer(ref.encode(), dtype=np.uint8)
+            g = np.random.default_rng(seed + 1000 * s + tid)
+            p1 = np.sort(g.integers(0, contig_len - isize - 1,
+                                    size=pairs_per_contig)
+                         ).astype(np.int64)
+            # het coverage loss: carriers lose ~half the fragments
+            # whose midpoint falls inside a carried deletion (the
+            # germline filter's RD-ratio gate demands it, as on real
+            # data)
+            mid = p1 + isize // 2
+            drop = np.zeros(len(p1), dtype=bool)
+            for i, (t2, bp1s, bp2s, _af) in enumerate(sites):
+                if t2 == tid and s in carriers[i]:
+                    inside = (mid >= bp1s) & (mid < bp2s)
+                    drop |= inside & (g.random(len(p1)) < 0.5)
+            p1 = p1[~drop]
+            bulk.append(_bulk_pair_records(
+                tid, ref_u8, p1, isize, 10_000_000 + s * 100_000,
+                rl=rl, seed=seed + 1000 * s + tid))
+        recs.sort(key=lambda r: (r[0], r[1]))
+        blobs = []
+        for tid, (bpos, bbuf, rec_w) in enumerate(bulk):
+            ev = [(p, b) for t, p, b in recs if t == tid]
+            blobs += _merge_sorted_blobs(bpos, bbuf, rec_w, ev)
+        path = f"{tmpdir}/{name}_s{s:03d}.bam"
+        write_bam(path, contigs, blobs, sample=f"S{s:03d}")
+        bam_paths.append(path)
+    return bam_paths, fa, truth
+
+
+def make_somatic_pair_dataset(tmpdir, n_contigs=2, contig_len=100_000,
+                              pairs_per_contig=1400, seed=97):
+    """Tumor/control pair over a shared genome: one GERMLINE ~6kb DEL
+    per contig (PE+SR evidence in BOTH files) and one SOMATIC ~5kb DEL
+    per contig (evidence in the tumor only). Returns
+    (tumor_bam, control_bam, fasta, germline_truth, somatic_truth)."""
+    rng = random.Random(seed)
+    contigs = [(f"chr{c + 1}",
+                random_contig(rng, contig_len,
+                              gc_blocks=max(1, contig_len // 10_000)))
+               for c in range(n_contigs)]
+    rl, isize = 100, 400
+    germ, soma = [], []
+    recs = {"tumor": [], "control": []}
+    qid = 0
+
+    def emit_del(who, tid, ref, bp1, bp2, sr_n=10, pe_n=14):
+        nonlocal qid
+        derived = ref[:bp1] + ref[bp2:]
+        for _ in range(pe_n):
+            off = rng.randint(30, 200)
+            p1 = bp1 - off - rl
+            p2 = bp2 + (isize - off - 2 * rl) + rng.randint(0, 40)
+            tl = p2 + rl - p1
+            recs[who].append((tid, p1, encode_record(
+                f"d{qid}", 0x61, tid, p1, 60, [("M", rl)], tid, p2, tl,
+                ref[p1:p1 + rl])))
+            recs[who].append((tid, p2, encode_record(
+                f"d{qid}", 0x91, tid, p2, 60, [("M", rl)], tid, p1,
+                -tl, ref[p2:p2 + rl])))
+            qid += 1
+        for _ in range(sr_n):
+            off = rng.randint(30, 70)
+            dpos = bp1 - off
+            seq = derived[dpos:dpos + rl]
+            recs[who].append((tid, dpos, encode_record(
+                f"s{qid}", 0x0, tid, dpos, 60,
+                [("M", off), ("S", rl - off)], -1, -1, 0, seq)))
+            recs[who].append((tid, bp2, encode_record(
+                f"s{qid}", 0x800, tid, bp2, 60,
+                [("S", off), ("M", rl - off)], -1, -1, 0, seq)))
+            qid += 1
+
+    for tid, (cname, ref) in enumerate(contigs):
+        bp1g = contig_len * 3 // 10
+        bp2g = bp1g + 6000
+        bp1s = contig_len * 6 // 10
+        bp2s = bp1s + 5000
+        germ.append((cname, bp1g, bp2g))
+        soma.append((cname, bp1s, bp2s))
+        for who in ("tumor", "control"):
+            for _ in range(pairs_per_contig):
+                isz = isize + rng.randint(-60, 60)
+                p1 = rng.randint(0, contig_len - isz - 1)
+                p2 = p1 + isz - rl
+                recs[who].append((tid, p1, encode_record(
+                    f"p{qid}", 0x63, tid, p1, 60, [("M", rl)], tid, p2,
+                    isz, ref[p1:p1 + rl])))
+                recs[who].append((tid, p2, encode_record(
+                    f"p{qid}", 0x93, tid, p2, 60, [("M", rl)], tid, p1,
+                    -isz, ref[p2:p2 + rl])))
+                qid += 1
+            emit_del(who, tid, ref, bp1g, bp2g)
+        emit_del("tumor", tid, ref, bp1s, bp2s)
+
+    fa = f"{tmpdir}/som.fa"
+    write_fasta(fa, contigs)
+    paths = {}
+    for who in ("tumor", "control"):
+        recs[who].sort(key=lambda r: (r[0], r[1]))
+        p = f"{tmpdir}/{who}.bam"
+        write_bam(p, contigs, [r[2] for r in recs[who]], sample=who)
+        paths[who] = p
+    return paths["tumor"], paths["control"], fa, germ, soma
+
+
+def make_asm_indel_dataset(tmpdir, contig_len=1_500_000, seed=7,
+                           name="asm"):
+    """One haplotype assembly alignment pair for ``asm`` (squashed):
+    two identical contig-length alignments of one contig, each with a
+    1,200 bp DEL at a third and a 600 bp novel INS at two thirds of it,
+    both as CIGAR indels. Returns (bam, fasta, truth) with truth =
+    [("DEL", pos), ("INS", pos)]."""
+    rng = random.Random(seed)
+    L = contig_len
+    ref = random_contig(rng, L)
+    posd, dell = L // 3, 1200
+    posi, insl = 2 * L // 3, 600
+    ins_seq = random_contig(rng, insl)
+    contigs = [("chr1", ref)]
+
+    def hap(qname):
+        cig = [("M", posd), ("D", dell),
+               ("M", posi - (posd + dell)), ("I", insl),
+               ("M", L - posi)]
+        seq = ref[:posd] + ref[posd + dell:posi] + ins_seq + ref[posi:]
+        return encode_record(qname, 0x0, 0, 0, 60, cig, -1, -1, 0, seq)
+
+    bam = f"{tmpdir}/{name}.bam"
+    fa = f"{tmpdir}/{name}.fa"
+    write_bam(bam, contigs, [hap("h1"), hap("h2")])
+    write_fasta(fa, contigs)
+    return bam, fa, [("DEL", posd), ("INS", posi)]
+
+
+def make_asm_diploid_dataset(tmpdir, contig_len=2_000_000, seed=91,
+                             name="asm"):
+    """Two haplotype assemblies of one sample for ``asm -y diploid``,
+    one contig-length alignment each: a DEL of 1,200 bp at a third of
+    the contig on both haplotypes (homozygous) and a novel INS of 600
+    bp at two thirds on the first only (heterozygous). Returns
+    ((hap1_bam, hap2_bam), fasta, truth) with truth = [("DEL", pos,
+    "1/1"), ("INS", pos, "het")]."""
+    rng = random.Random(seed)
+    L = contig_len
+    ref = random_contig(rng, L)
+    posd, dell = L // 3, 1200
+    posi, insl = 2 * L // 3, 600
+    ins_seq = random_contig(rng, insl)
+
+    def hap(qname, with_ins):
+        cig = [("M", posd), ("D", dell)]
+        seq = ref[:posd]
+        if with_ins:
+            cig += [("M", posi - (posd + dell)), ("I", insl),
+                    ("M", L - posi)]
+            seq += ref[posd + dell:posi] + ins_seq + ref[posi:]
+        else:
+            cig += [("M", L - (posd + dell))]
+            seq += ref[posd + dell:]
+        return encode_record(qname, 0x0, 0, 0, 60, cig, -1, -1, 0, seq)
+
+    h1 = f"{tmpdir}/{name}_h1.bam"
+    h2 = f"{tmpdir}/{name}_h2.bam"
+    fa = f"{tmpdir}/{name}.fa"
+    write_bam(h1, [("chr1", ref)], [hap("s.hap1", True)])
+    write_bam(h2, [("chr1", ref)], [hap("s.hap2", False)])
+    write_fasta(fa, [("chr1", ref)])
+    return (h1, h2), fa, [("DEL", posd, "1/1"), ("INS", posi, "het")]
+
+
+def make_asm_split_dataset(tmpdir, contig_len=200_000, seed=7,
+                           name="asm"):
+    """Assembly alignments with split-contig evidence for ``asm``: a
+    DUP (12 kb copy junction) and an INV (reverse-strand supplementary)
+    on ctgA, and a BND ctgA -> ctgB carried by two samples (a
+    translocation needs two supporting samples to pass the merge).
+    Each contig piece is 30 kb. Returns ((bam_s1, bam_s2), fasta, truth)
+    with truth = [("DUP", "ctgA", pos), ("INV", "ctgA", pos), ("BND",
+    "ctgA", pos, "ctgB", pos)]."""
+    rng = random.Random(seed)
+    L = contig_len
+    ref1 = random_contig(rng, L)
+    ref2 = random_contig(rng, L)
+    h = 30_000
+    recs1 = []
+    recs2 = []
+
+    # DUP at ctgA [40000,52000): contig crossing the copy junction
+    d1, d2 = 40_000, 52_000
+    seq = ref1[d2 - h:d2] + ref1[d1:d1 + h]
+    recs1.append((d2 - h, encode_record(
+        "dup.hap1", 0x0, 0, d2 - h, 60, [("M", h), ("S", h)],
+        -1, -1, 0, seq)))
+    recs1.append((d1, encode_record(
+        "dup.hap1", 0x800, 0, d1, 60, [("S", h), ("M", h)],
+        -1, -1, 0, seq)))
+
+    # INV at ctgA [100000,140000): reverse-strand supplementary
+    v1, v2 = 100_000, 140_000
+    seq = ref1[v1 - h:v1] + revcomp(ref1[v2 - h:v2])
+    recs1.append((v1 - h, encode_record(
+        "inv.hap1", 0x0, 0, v1 - h, 60, [("M", h), ("S", h)],
+        -1, -1, 0, seq)))
+    recs1.append((v2 - h, encode_record(
+        "inv.hap1", 0x810, 0, v2 - h, 60, [("M", h), ("S", h)],
+        -1, -1, 0, revcomp(seq))))
+
+    # BND ctgA:170000 -> ctgB:60000, in both samples
+    ba, bb = 170_000, 60_000
+    seq = ref1[ba - h:ba] + ref2[bb:bb + h]
+    recs1.append((ba - h, encode_record(
+        "bnd.hap1", 0x0, 0, ba - h, 60, [("M", h), ("S", h)],
+        -1, -1, 0, seq)))
+    recs2.append((bb, encode_record(
+        "bnd.hap1", 0x800, 1, bb, 60, [("S", h), ("M", h)],
+        -1, -1, 0, seq)))
+
+    bam = f"{tmpdir}/{name}.bam"
+    bam2 = f"{tmpdir}/{name}2.bam"
+    fa = f"{tmpdir}/{name}.fa"
+    allrecs = ([(0, p, b) for p, b in recs1]
+               + [(1, p, b) for p, b in recs2])
+    allrecs.sort(key=lambda r: (r[0], r[1]))
+    write_bam(bam, [("ctgA", ref1), ("ctgB", ref2)],
+              [r[2] for r in allrecs], sample="s1")
+    bnd2 = [(0, ba - h, encode_record(
+                "bnd.hap1", 0x0, 0, ba - h, 60, [("M", h), ("S", h)],
+                -1, -1, 0, seq)),
+            (1, bb, encode_record(
+                "bnd.hap1", 0x800, 1, bb, 60, [("S", h), ("M", h)],
+                -1, -1, 0, seq))]
+    write_bam(bam2, [("ctgA", ref1), ("ctgB", ref2)],
+              [r[2] for r in bnd2], sample="s2")
+    write_fasta(fa, [("ctgA", ref1), ("ctgB", ref2)])
+    return (bam, bam2), fa, [("DUP", "ctgA", d1), ("INV", "ctgA", v1),
+                             ("BND", "ctgA", ba, "ctgB", bb)]

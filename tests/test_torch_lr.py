@@ -1,9 +1,9 @@
 """The PyTorch port's `lr` slice end to end against the JAX package.
 
-`python -m delly_tpu_torch.cli lr` runs in a subprocess with
-DELLY_TPU_TORCH_DEVICE=cpu (K1's plain version) and
-`python -m delly_tpu.cli lr` under JAX_PLATFORMS=cpu, on the same
-inputs: the five SV families of `make_lr_sv_dataset` (whose consensus
+`delly_tpu_torch.cli lr` runs in a subprocess with
+DELLY_TPU_TORCH_DEVICE=cpu (K1's plain version) and `delly_tpu.cli lr`
+in another under JAX_PLATFORMS=cpu (tests/torch_card.py run_ok), on the
+same inputs: the five SV families of `make_lr_sv_dataset` (whose consensus
 distances reach queries of 8,192 rows, K1's widest), the msaWfa
 insertion consensus, a noisy ONT-like genome, a deep long-read dataset
 with `lr -v` on the JAX package's sites, MM/ML methylation, HP/PS
@@ -14,12 +14,8 @@ must end with neither jax nor any delly_tpu module imported, and with
 no batch on the torch row-scan.
 """
 
-import json
-import os
 import random
 import struct
-import subprocess
-import sys
 
 import pytest
 
@@ -27,58 +23,7 @@ from bamsynth import (aux_mm_ml, encode_record, make_deep_lr_dataset,
                       make_lr_genome_dataset, make_lr_insertion_dataset,
                       make_lr_sv_dataset, random_contig, write_bam,
                       write_fasta)
-from delly_tpu.io.bcf import bcf_to_vcf_text
-from torch_card import torch_cpu  # noqa: F401
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_DRIVER = (
-    "import json, sys\n"
-    "from delly_tpu_torch.cli import main\n"
-    "from delly_tpu_torch.parallel import dispatch\n"
-    "rc = main(sys.argv[1:])\n"
-    "leaked = sorted(m for m in sys.modules\n"
-    "                if m.split('.')[0] in ('jax', 'delly_tpu'))\n"
-    "print('LEAKED=' + json.dumps(leaked))\n"
-    "print('COUNTS=' + json.dumps(dispatch.snapshot()))\n"
-    "sys.exit(rc)\n")
-
-
-def _env(**extra):
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env.update(extra)
-    return env
-
-
-def _run_jax(args):
-    p = subprocess.run([sys.executable, "-m", "delly_tpu.cli", *args],
-                       cwd=REPO, env=_env(JAX_PLATFORMS="cpu"),
-                       capture_output=True, text=True, timeout=300)
-    assert p.returncode == 0, p.stderr[-2000:]
-    return p.stderr
-
-
-def _run_port(args):
-    # one torch thread: the plain versions' small ops gain little from
-    # more, and the test suite runs several files at once
-    p = subprocess.run([sys.executable, "-c", PORT_DRIVER, *args], cwd=REPO,
-                       env=_env(DELLY_TPU_TORCH_DEVICE="cpu",
-                                OMP_NUM_THREADS="1"),
-                       capture_output=True, text=True, timeout=300)
-    assert p.returncode == 0, p.stderr[-2000:]
-    lines = p.stdout.splitlines()
-    leaked = [ln for ln in lines if ln.startswith("LEAKED=")][-1]
-    assert json.loads(leaked[len("LEAKED="):]) == []
-    counts = [ln for ln in lines if ln.startswith("COUNTS=")][-1]
-    assert json.loads(counts[len("COUNTS="):])["rowscan"] == 0
-    return p.stderr
-
-
-def _body(path):
-    with open(path, "rb") as fh:
-        data = fh.read()
-    text = bcf_to_vcf_text(data) if path.endswith(".bcf") else data.decode()
-    return [ln for ln in text.splitlines() if not ln.startswith("##fileDate")]
+from torch_card import output_lines, run_ok, torch_cpu  # noqa: F401
 
 
 def _phase_dataset(d):
@@ -199,10 +144,10 @@ def test_lr_matches_jax(workdir, case, name, suffix, extra):
     bam = str(next(d.glob("*.bam")))
     fa = str(next(d.glob("*.fa")))
     stem = case.replace(" ", "_").replace("-", "")
-    opts = []
+    jsteps, opts = [], []
     if "-v" in extra:
         sites = str(d / "sites.vcf")
-        _run_jax(["lr", "-g", fa, "-o", sites, bam])
+        jsteps.append(["lr", "-g", fa, "-o", sites, bam])
         opts = ["-v", sites]
     if "-l" in extra:
         alt = d / "alt.tsv"
@@ -210,10 +155,12 @@ def test_lr_matches_jax(workdir, case, name, suffix, extra):
         opts = ["-l", str(alt)]
     want = str(d / f"{stem}.jax.{suffix}")
     got = str(d / f"{stem}.port.{suffix}")
-    jerr = _run_jax(["lr", *opts, "-g", fa, "-o", want, bam])
-    perr = _run_port(["lr", *opts, "-g", fa, "-o", got, bam])
-    body = _body(got)
-    assert body == _body(want)
+    jerr = run_ok("delly_tpu", jsteps + [["lr", *opts, "-g", fa, "-o", want,
+                                           bam]], d)["stderr"]
+    perr = run_ok("delly_tpu_torch", [["lr", *opts, "-g", fa, "-o", got,
+                                        bam]], d)["stderr"]
+    body = output_lines(got)
+    assert body == output_lines(want)
     assert any(not ln.startswith("#") for ln in body)
     if "-l" in extra:
         assert "Filtered 0 out of" in jerr and "Filtered 0 out of" in perr

@@ -5,54 +5,14 @@ DELLY_TPU_TORCH_DEVICE=cpu (the kernels' plain versions) on a small
 mixed-SV dataset and a small deep-genotyping dataset, and `sr -v`
 re-genotypes the deep dataset's sites. Each VCF must equal the one from
 `python -m delly_tpu.cli` apart from the ##fileDate line, and the port's
-process must end with neither jax nor any delly_tpu module imported.
+process must end with neither jax nor any delly_tpu module imported,
+and with no torch row-scan batch (tests/torch_card.py run_port).
 """
-
-import json
-import os
-import subprocess
-import sys
 
 import pytest
 
 from bamsynth import make_deep_geno_dataset, make_multi_sv_dataset
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_DRIVER = (
-    "import json, sys\n"
-    "from delly_tpu_torch.cli import main\n"
-    "rc = main(sys.argv[1:])\n"
-    "leaked = sorted(m for m in sys.modules\n"
-    "                if m.split('.')[0] in ('jax', 'delly_tpu'))\n"
-    "print('LEAKED=' + json.dumps(leaked))\n"
-    "sys.exit(rc)\n")
-
-
-def _env(**extra):
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env.update(extra)
-    return env
-
-
-def _run_jax(args):
-    subprocess.run([sys.executable, "-m", "delly_tpu.cli", *args], cwd=REPO,
-                   env=_env(JAX_PLATFORMS="cpu"), check=True,
-                   capture_output=True, timeout=300)
-
-
-def _run_port(args):
-    p = subprocess.run([sys.executable, "-c", PORT_DRIVER, *args], cwd=REPO,
-                       env=_env(DELLY_TPU_TORCH_DEVICE="cpu"),
-                       capture_output=True, text=True, timeout=300)
-    assert p.returncode == 0, p.stderr[-2000:]
-    line = [ln for ln in p.stdout.splitlines() if ln.startswith("LEAKED=")]
-    assert json.loads(line[-1][len("LEAKED="):]) == []
-
-
-def _body(path):
-    with open(path) as fh:
-        return [ln for ln in fh if not ln.startswith("##fileDate")]
+from torch_card import output_lines, run_ok
 
 
 @pytest.fixture(scope="module")
@@ -70,10 +30,10 @@ def test_sr_discovery_matches_jax(datasets, name):
     d, sets = datasets
     bam, fa, truth = sets[name]
     want, got = str(d / f"{name}.jax.vcf"), str(d / f"{name}.port.vcf")
-    _run_jax(["sr", "-g", fa, "-o", want, bam])
-    _run_port(["sr", "-g", fa, "-o", got, bam])
-    body = _body(got)
-    assert body == _body(want)
+    run_ok("delly_tpu", [["sr", "-g", fa, "-o", want, bam]], d)
+    run_ok("delly_tpu_torch", [["sr", "-g", fa, "-o", got, bam]], d)
+    body = output_lines(got)
+    assert body == output_lines(want)
     assert sum(not ln.startswith("#") for ln in body) >= len(truth)
 
 
@@ -81,8 +41,9 @@ def test_sr_regenotype_matches_jax(datasets):
     d, sets = datasets
     bam, fa, _truth = sets["deepgeno"]
     sites = str(d / "sites.vcf")
-    _run_jax(["sr", "-g", fa, "-o", sites, bam])
     want, got = str(d / "regeno.jax.vcf"), str(d / "regeno.port.vcf")
-    _run_jax(["sr", "-v", sites, "-g", fa, "-o", want, bam])
-    _run_port(["sr", "-v", sites, "-g", fa, "-o", got, bam])
-    assert _body(got) == _body(want)
+    run_ok("delly_tpu", [["sr", "-g", fa, "-o", sites, bam],
+                         ["sr", "-v", sites, "-g", fa, "-o", want, bam]], d)
+    run_ok("delly_tpu_torch", [["sr", "-v", sites, "-g", fa, "-o", got, bam]],
+           d)
+    assert output_lines(got) == output_lines(want)
