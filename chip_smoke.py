@@ -73,7 +73,26 @@
    called) with its cohort step (a second sample, `merge -e -y 0 -q 2`,
    `cnv -v`). K1 must launch in the joint `sr -v` and in the families run; no
    step may take a host route or a row-scan batch.
-6. Starts the same sr and lr commands (not the bench-size deep-lr ones)
+6. CRAM input, the mesh, the host axis and the device trace. A third
+   and fourth worker process, started after phase 3, write svmix as a
+   CRAM 3.1 and a CRAM 3.0 with the port's write_cram; `sr` runs on the
+   card on each, whole-file and streaming, and its calls and launch
+   counts must equal the svmix BAM run's (with the seconds spent
+   decoding CRAM beside the BAM run's scan). `sr` on deepgeno and `cnv
+   -c -u` run under DELLY_TPU_MESH=1 (and at N = the visible cards when
+   there are more than one): every output, the coverage, segmentation
+   and statistics files included, must equal the run without a mesh,
+   and every card must have run chunks (dispatch.device_snapshot). A
+   2-process gloo world on the one card
+   (delly_tpu_torch/testing/hostaxis_worker.py) runs `sr` on svmix and
+   `lr` on lr_sv; its VCFs must equal the one-process runs. Last, the
+   runs of TRACED run again under DELLY_TPU_PROFILE_TRACE (a
+   torch.profiler trace of the card's activity), each in a fresh process
+   (delly_tpu_torch/testing/trace_check.py): each prints its busy
+   share, the union of its kernel and copy intervals over its wall, and
+   its traced wall beside the untraced one; its trace must hold one
+   kernel record for every launch of the port's kernels it counted.
+7. Starts the same sr and lr commands (not the bench-size deep-lr ones)
    with DELLY_TPU_TORCH_DEVICE=cpu (together, one torch thread each,
    with their stage profiles), and each workflow of phase 5 in one
    process that runs its steps one after the other (each step reading
@@ -91,10 +110,10 @@
    this phase are taken with the CPU runs going. Last, checks that every
    card output equals its CPU run's apart from ##fileDate (BCF decoded,
    gzip files decompressed).
-7. Prints the kernels line (K1's entry with its lr and asm launches,
+8. Prints the kernels line (K1's entry with its lr and asm launches,
    pairs by shape and largest launch), then as the last line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}:
-   the run uses one card, cuda:0.
+   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}},
+   N the visible cards (torch.cuda.device_count()).
 
 Operations bounds use the card's 32-bit integer rate: 64 INT32 lanes per
 SM x the SM count x the SM clock (nvidia-smi clocks.max.sm); every
@@ -112,6 +131,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import random
 import re
 import shutil
@@ -1041,6 +1061,7 @@ def run_card(argv, details, label, wraps=(), quiet=False):
     torch.cuda.synchronize()
     t1 = time.time()
     counts = dispatch.snapshot()
+    hits = dispatch.device_snapshot()
     need(rc == 0, f"{label}: exited {rc}")
     stages = {}
     pts = [(t0, "startup")] + marks + [(t1, None)]
@@ -1053,7 +1074,8 @@ def run_card(argv, details, label, wraps=(), quiet=False):
         for k, v in stages.items():
             print(f"  {k}: {v:.3f}s")
     details.setdefault("runs", {})[label] = {
-        "wall_s": t1 - t0, "stages": stages, "launches": counts}
+        "wall_s": t1 - t0, "stages": stages, "launches": counts,
+        "device_hits": hits}
     return counts, stages
 
 
@@ -1806,6 +1828,285 @@ def phase_cohort(dev, work, details, gen) -> tuple:
     return launches, flows, k1
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: CRAM input, the mesh, the host axis and the device trace
+# ---------------------------------------------------------------------------
+
+# svmix written as CRAM with the port's write_cram, by version
+CRAM_WRITES = {"3.1": dict(version=(3, 1)), "3.0": {}}
+# the runs traced again under DELLY_TPU_PROFILE_TRACE: every card run of
+# phases 3-6 under about 10 s, and long-split and the small deep-lr
+TRACED = ("sr svmix", "sr deepgeno", "sr -v deepgeno", "sr long-split",
+          "lr lr_sv", "lr noisy", "lr deep-lr small",
+          "lr -v deep-lr small", "cohort sr -v", "somatic sr",
+          "asm squashed", "asm families", "cnv cnv -c -u",
+          "sr svmix CRAM 3.1 whole")
+
+
+def write_cram_file(bam, fa, out, kw) -> float:
+    """Writes `bam` as a CRAM with the port's write_cram; returns the
+    seconds it took. Runs in a worker process of start_cram_writes."""
+    from delly_tpu_torch.io.bam import BamFile
+    from delly_tpu_torch.io.cram import write_cram
+
+    t0 = time.time()
+    write_cram(BamFile(bam), fa, out, **kw)
+    return time.time() - t0
+
+
+def start_cram_writes(work, cmds):
+    """Writes svmix as a CRAM of each version of CRAM_WRITES, one spawned
+    worker process each, beside phases 4 and 5. Returns (pool,
+    {version: future})."""
+    argv = cmds["sr svmix"]
+    fa, bam = argv[argv.index("-g") + 1], argv[-1]
+    pool = ProcessPoolExecutor(len(CRAM_WRITES),
+                               mp_context=get_context("spawn"))
+    return pool, {v: pool.submit(write_cram_file, bam, fa, os.path.join(
+        work, f"svmix{v.replace('.', '')}.cram"), kw)
+        for v, kw in CRAM_WRITES.items()}
+
+
+def phase_cram(work, details, cmds, cram_futs) -> dict:
+    """`sr` on the card on svmix's CRAMs, each whole-file and streaming:
+    the calls and the launch counts must equal the card's svmix BAM run.
+    Prints the seconds spent decoding CRAM beside the BAM run's scan."""
+    from delly_tpu_torch.io import bam as bam_io
+    from delly_tpu_torch.io import cram as cram_io
+
+    t0 = time.time()
+    secs = {v: f.result() for v, f in cram_futs.items()}
+    print("CRAM: svmix written by the port's write_cram as " + ", ".join(
+        f"{v} in {s:.1f}s" for v, s in secs.items()) + f" beside phases "
+        f"4-5; waited {time.time() - t0:.1f}s for them")
+    details["cram_write_s"] = secs
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+    base = cmds["sr svmix"]
+    bam_run = details["runs"]["sr svmix"]
+    want = records(p("svmix.cuda.vcf"))
+    scan = {k: v for k, v in bam_run["stages"].items()
+            if k in ("startup", "Paired-end and split-read scanning")}
+    print(f"sr svmix BAM (phase 3): wall {bam_run['wall_s']:.3f}s, " +
+          ", ".join(f"{k} {v:.3f}s" for k, v in scan.items()))
+    launches, out = {}, {}
+    for v in CRAM_WRITES:
+        path = p(f"svmix{v.replace('.', '')}.cram")
+        for mode, thr in (("whole", 1 << 62), ("stream", 0)):
+            label = f"sr svmix CRAM {v} {mode}"
+            acc = {"s": 0.0, "calls": 0}
+            wraps = [(bam_io, "STREAM_THRESHOLD", lambda _old, t=thr: t),
+                     (cram_io, "cram_to_bam_bytes", timer(acc)),
+                     (cram_io.CramStream, "_decode_container", timer(acc))]
+            argv = base[:-1] + [path]
+            vcf = p(f"svmix_cram{v.replace('.', '')}_{mode}.vcf")
+            argv[argv.index("-o") + 1] = vcf
+            launches[label], stages = run_card(argv, details, label, wraps,
+                                               quiet=True)
+            same = records(vcf) == want
+            counts_same = launches[label] == bam_run["launches"]
+            run = details["runs"][label]
+            print(f"{label}: wall {run['wall_s']:.3f}s, CRAM decode "
+                  f"{acc['s']:.3f}s in {acc['calls']} calls; calls == BAM "
+                  f"run's: {same}; launches == BAM run's: {counts_same}")
+            out[label] = {"wall_s": run["wall_s"], "decode_s": acc["s"],
+                          "decode_calls": acc["calls"],
+                          "cram_bytes": os.path.getsize(path)}
+            need(acc["calls"] > 0, f"{label}: no CRAM decode timed")
+            need(same, f"{label}: calls differ from the BAM run's")
+            need(counts_same, f"{label}: launches {launches[label]} differ "
+                 f"from the BAM run's {bam_run['launches']}")
+    out["bam_bytes"] = os.path.getsize(base[-1])
+    details["cram"] = out
+    return launches
+
+
+def phase_mesh(work, details, cmds, flows) -> dict:
+    """`sr` on deepgeno and `cnv -c -u` on the cnv genome under
+    DELLY_TPU_MESH=1, and at N = the visible cards when there are more
+    than one: every output (the coverage, segmentation and statistics
+    files included) must equal the runs without a mesh, and every card
+    of the mesh must have run chunks."""
+    import torch
+
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+    ndev = torch.cuda.device_count()
+    print(f"mesh: {ndev} visible card(s)")
+    details["mesh_visible"] = ndev
+    runs = {"sr deepgeno": (cmds["sr deepgeno"], "sr deepgeno"),
+            "cnv -c -u": (dict(flows["cnv"])["cnv -c -u"], "cnv cnv -c -u 0")}
+    # the window math's one transcendental, on the card and in numpy:
+    # values that round otherwise, and those whose %g (the coverage
+    # file's format) changes
+    rng = np.random.default_rng(SEED)
+    x = np.concatenate([rng.gamma(20.0, 8.0, 2_000_000) + 1.0,
+                        np.arange(1.0, 200_000.0),
+                        (np.floor(rng.gamma(20.0, 8.0, 1_000_000)) + 1.0)
+                        / (rng.gamma(20.0, 8.0, 1_000_000) + 1.0)])
+    card = torch.log2(torch.from_numpy(x).cuda()).cpu().numpy()
+    host = np.log2(x)
+    diff = np.flatnonzero(card != host)
+    shown = sum(f"{a:g}" != f"{b:g}" for a, b in zip(card[diff], host[diff]))
+    print(f"float64 log2: the card rounds {len(diff)} of {len(x)} values "
+          f"otherwise than numpy; {shown} of them print otherwise with %g")
+    details["log2_rounding"] = {"values": len(x), "differ": len(diff),
+                                "differ_g": shown}
+    launches = {}
+    for n in [1] + ([ndev] if ndev > 1 else []):
+        for name, (argv, ref) in runs.items():
+            label = f"{name} mesh {n}"
+            outs = [a for a in argv if "{}" in a]
+            argv = [a.replace("{}", f"mesh{n}") for a in argv]
+            os.environ["DELLY_TPU_MESH"] = str(n)
+            try:
+                launches[label], stages = run_card(argv, details, label,
+                                                   quiet=True)
+            finally:
+                del os.environ["DELLY_TPU_MESH"]
+            run = details["runs"][label]
+            hits = run["device_hits"]
+            same = all(output_lines(o.replace("{}", f"mesh{n}"))
+                       == output_lines(o.replace("{}", "cuda")) for o in outs)
+            print(f"{label}: wall {run['wall_s']:.3f}s (no mesh "
+                  f"{details['runs'][ref]['wall_s']:.3f}s), chunks by card "
+                  f"{hits}; {len(outs)} outputs == no mesh: {same}")
+            need(same, f"{label}: outputs differ from the run without a mesh")
+            need(sorted(hits) == list(range(n))
+                 and all(sum(h.values()) > 0 for h in hits.values()),
+                 f"{label}: a card of the mesh ran no chunk: {hits}")
+            if name == "cnv -c -u":
+                need(any(k.startswith("Mesh read-depth windows")
+                         for k in stages), f"{label}: no mesh windows")
+                need(all(h.get("cnv_depth", 0) > 0 for h in hits.values()),
+                     f"{label}: window math not on every card")
+            if n == 1:
+                need(launches[label] == details["runs"][ref]["launches"],
+                     f"{label}: launches differ from the run without a mesh")
+    return launches
+
+
+def phase_hostaxis(work, details, cmds) -> None:
+    """A 2-process gloo world on the one card
+    (delly_tpu_torch/testing/hostaxis_worker.py): `sr` on svmix and `lr`
+    on lr_sv. Process 0's VCFs must equal the card's one-process runs."""
+    import socket
+
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+    sr, lr = cmds["sr svmix"], cmds["lr lr_sv"]
+    steps = [sr[:sr.index("-o") + 1] + ["{out}/svmix.vcf"] + sr[-1:],
+             lr[:lr.index("-o") + 1] + ["{out}/lrsv.vcf"] + lr[-1:]]
+    outdir = p("world2")
+    os.makedirs(outdir)
+    with open(p("world2.json"), "w") as fh:
+        json.dump(steps, fh)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    procs = []
+    for pid in range(2):
+        with open(p(f"world2.{pid}.err"), "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "delly_tpu_torch.testing.hostaxis_worker", str(pid), "2",
+                 str(port), outdir, p("world2.json")], cwd=REPO,
+                stdout=subprocess.DEVNULL, stderr=err))
+    try:
+        rcs = [q.wait(timeout=600) for q in procs]
+    finally:
+        for q in procs:
+            if q.poll() is None:
+                q.kill()
+                q.wait()
+    wall = time.time() - t0
+    for pid, rc in enumerate(rcs):
+        with open(p(f"world2.{pid}.err")) as fh:
+            need(rc == 0, f"host axis process {pid} exited {rc}: "
+                 f"{fh.read()[-1500:]}")
+    seen = []
+    for pid in range(2):
+        with open(os.path.join(outdir, f"p{pid}.pkl"), "rb") as fh:
+            seen.append(pickle.load(fh))
+    same = {name: output_lines(os.path.join(outdir, name))
+            == output_lines(p(ref)) for name, ref in (
+                ("svmix.vcf", "svmix.cuda.vcf"),
+                ("lrsv.vcf", "lrsv.cuda.vcf"))}
+    print(f"host axis: 2 processes on one card, sr svmix and lr lr_sv in "
+          f"{wall:.1f}s (processes included); worlds "
+          f"{[(o['index'], o['count']) for o in seen]}, exit codes "
+          f"{[o['rcs'] for o in seen]}; VCFs == one process: {same}")
+    details["hostaxis"] = {
+        "wall_s": wall, "same": same,
+        "seen": [{k: o[k] for k in ("index", "count", "rcs")} for o in seen]}
+    need(all(o["count"] == 2 and o["rcs"] == [0, 0] for o in seen),
+         "host axis: the world did not form or a step failed")
+    need(all(same.values()), "host axis: VCFs differ from one process")
+
+
+def phase_trace(work, details, cmds, flows) -> dict:
+    """Each run of TRACED again, under DELLY_TPU_PROFILE and
+    DELLY_TPU_PROFILE_TRACE (a torch.profiler trace of the card's
+    activity, utils/profiling.py), each in a fresh process
+    (testing/trace_check.py: the profiler's records drift from its first
+    start in a process on, and a long-lived process loses them), started
+    about trace_check.WARMUP_S before the run before it is expected to
+    end (its untraced wall). Prints its busy share and its traced wall
+    beside the untraced run's; its trace must hold one record of every
+    launch of the port's kernels that the run counted."""
+    from delly_tpu_torch.testing import trace_check as tc
+
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+    # label -> (argv, the label of its untraced run)
+    runs = {label: (argv, label) for label, argv in cmds.items()}
+    for wf, steps in flows.items():
+        for i, (label, argv) in enumerate(steps):
+            runs.setdefault(f"{wf} {label}", (argv, f"{wf} {label} {i}"))
+    cram = cmds["sr svmix"][:-1] + [p("svmix31.cram")]
+    cram[cram.index("-o") + 1] = p("svmix_cram.{}.vcf")
+    runs["sr svmix CRAM 3.1 whole"] = (cram, "sr svmix CRAM 3.1 whole")
+
+    def start(k):
+        argv = [a.replace("{}", "trace") for a in runs[TRACED[k]][0]]
+        return tc.start(argv, p(f"trace{k}"))
+
+    out = {}
+    cur, nxt = None, start(0)
+    try:
+        for k, label in enumerate(TRACED):
+            cur, nxt = nxt, None
+            tc.go(cur)
+            if k + 1 < len(TRACED):
+                expect = details["runs"][runs[label][1]]["wall_s"]
+                tc.wait(cur, expect - tc.WARMUP_S)
+                nxt = start(k + 1)
+            res = tc.finish(cur)
+            counts, wall = res["launches"], res["wall_s"]
+            b = tc.busy_share(res["trace"], wall)
+            b.update(traced_wall_s=wall,
+                     untraced_wall_s=details["runs"][runs[label][1]]["wall_s"],
+                     traced_s=res["traced_s"], call_s=res["call_s"],
+                     trace_mb=os.path.getsize(res["trace"]) / 2**20,
+                     launches=counts)
+            shutil.rmtree(os.path.dirname(res["trace"]))
+            print(f"{label}: busy {b['busy_s']:.4f}s of {wall:.3f}s traced "
+                  f"wall = {b['share']:.2%} ({b['device_events']} kernels and "
+                  f"copies; the port's kernels {b['port_kernels']}); untraced "
+                  f"wall {b['untraced_wall_s']:.3f}s; with the profiler's "
+                  f"start and export {b['traced_s']:.3f}s, from go to the "
+                  f"process's exit {b['call_s']:.3f}s; most busy: " +
+                  "; ".join(f"{n[:48]} {t:.4f}s" for n, t in b["top"][:3]))
+            need(b["port_kernels"] == tc.launched(counts),
+                 f"{label} traced: the port's kernels in the trace "
+                 f"{b['port_kernels']} differ from its launches "
+                 f"{tc.launched(counts)}")
+            out[label] = b
+    finally:
+        for run in (cur, nxt):
+            if run is not None:
+                tc.stop(run)
+    details["busy_share"] = out
+    return out
+
+
 def run_workflow(path) -> None:
     """Runs one workflow's steps ({"steps": [[label, argv], ...], "out":
     path}) through the CLI in this process, one after the other, and
@@ -1909,7 +2210,7 @@ def main() -> int:
     os.environ["DELLY_TPU_TORCH_DEVICE"] = "cuda"
     t0 = time.time()
     cpu_runs = []
-    pool = None
+    pool = cram_pool = None
     try:
         k3_count, probe_lib = phase_build(details)
         sass_loops = kernel_sass(details, k3_count)
@@ -1919,6 +2220,7 @@ def main() -> int:
         k1 = check_myers(dev, rng, details)
         k2, tb = check_gotoh(dev, rng, details, step_ns)
         launches, k3_launches, cmds = phase_e2e(work, details)
+        cram_pool, cram_futs = start_cram_writes(work, cmds)
         phase_host_dp(work, details)
         lr_launches, lr_cmds, k1_lr = phase_lr(dev, work, details, gen["lr"])
         launches.update(lr_launches)
@@ -1926,6 +2228,10 @@ def main() -> int:
         co_launches, flows, k1_asm = phase_cohort(dev, work, details,
                                                   gen["cohort"])
         launches.update(co_launches)
+        launches.update(phase_cram(work, details, cmds, cram_futs))
+        launches.update(phase_mesh(work, details, cmds, flows))
+        phase_hostaxis(work, details, cmds)
+        phase_trace(work, details, cmds, flows)
         # the same commands and workflows on the host (the plain
         # versions), all at once in the background while the K3/K3-tb
         # checks and timings run
@@ -1938,8 +2244,9 @@ def main() -> int:
         finish_cpu_runs(cpu_runs[:len(cmds)], cmds, details)
         finish_cpu_workflows(cpu_runs[len(cmds):], flows, details)
     finally:
-        if pool is not None:
-            pool.shutdown(cancel_futures=True)
+        for worker_pool in (pool, cram_pool):
+            if worker_pool is not None:
+                worker_pool.shutdown(cancel_futures=True)
         for run in cpu_runs:
             if run[1].poll() is None:
                 run[1].kill()
@@ -1981,9 +2288,9 @@ def main() -> int:
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
-    # the run used one card, cuda:0, whatever else is visible
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": 1}}))
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -16,6 +16,11 @@ JAX package's CLI, with the same options and defaults:
 ``sr``, ``lr``, ``asm`` and ``cnv`` run on the run's device
 (``DELLY_TPU_TORCH_DEVICE``, ``cuda`` by default), resolved before any
 work; ``merge`` and ``filter`` are host commands and resolve none.
+Alignments are read from BAM or CRAM. ``DELLY_TPU_MESH`` splits the
+kernels' job batches over several devices (``_mesh_scope``), and
+``DELLY_TPU_COORD``/``DELLY_TPU_NPROC``/``DELLY_TPU_PROC_ID`` or
+``DELLY_TPU_DIST=auto`` run one command over several processes
+(parallel/hostaxis.py), process 0 writing the outputs.
 
     python -m delly_tpu_torch.cli sr -g ref.fa -o out.vcf sample.bam
     python -m delly_tpu_torch.cli lr -g ref.fa -o out.vcf sample.bam
@@ -24,6 +29,7 @@ work; ``merge`` and ``filter`` are host commands and resolve none.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -361,13 +367,110 @@ def _dispatch(argv=None) -> int:
     if args.command is None:
         parser.print_help()
         return 0
-    return _run_command(args)
+    with _mesh_scope(args.command, getattr(args, "input_files", None)
+                     or [getattr(args, "input_file", "")]):
+        return _run_command(args)
+
+
+# The JAX package's threshold for meshing by default, kept as it is: the
+# port's cost of a mesh on a small run is not measured. An explicit
+# DELLY_TPU_MESH=N always wins.
+_MESH_AUTO_MIN_BYTES = 64 << 20
+
+
+@contextlib.contextmanager
+def _mesh_scope(command: str, input_files=None):
+    """The device mesh of a run (parallel/dispatch.py):
+
+    - ``DELLY_TPU_MESH=N`` splits the kernels' job batches of any
+      command over N devices (``0``/``off``/``none``/``no`` turns it
+      off; N = 1 is a real mesh of one device, which runs the same split
+      and stays byte-identical). On ``cuda`` these are the first N
+      visible cards; under ``DELLY_TPU_TORCH_DEVICE=cpu`` the CPU listed
+      N times. N above the visible cards warns and uses them all.
+    - Unset, ``sr``/``lr``/``asm``/``cnv`` mesh over every visible card
+      when there are more than one and the inputs reach
+      ``_MESH_AUTO_MIN_BYTES``; the host never meshes unasked.
+
+    The mesh is made at the first kernel dispatch, after the startup
+    checks. In a world of several processes each process meshes the
+    cards it sees (``CUDA_VISIBLE_DEVICES`` gives each its own): its
+    job batches are its own, so no dispatch is collective.
+    """
+    spec = os.environ.get("DELLY_TPU_MESH", "").strip().lower()
+    if spec in ("0", "off", "none", "no"):
+        yield None
+        return
+    if not spec and command not in ("sr", "lr", "asm", "cnv"):
+        yield None
+        return
+    if not spec and input_files:
+        try:
+            total = sum(os.path.getsize(f) for f in input_files if f)
+        except OSError:
+            total = _MESH_AUTO_MIN_BYTES
+        if total < _MESH_AUTO_MIN_BYTES:
+            yield None
+            return
+    want = None
+    if spec:
+        try:
+            want = int(spec)
+        except ValueError:
+            print(f"Invalid DELLY_TPU_MESH value: {spec}", file=sys.stderr)
+            raise SystemExit(1)
+        if want < 1:
+            yield None
+            return
+
+    def build_mesh():
+        import torch
+
+        from delly_tpu_torch.parallel.mesh import make_mesh
+        from delly_tpu_torch.utils import torchenv
+        dev = torchenv.device()
+        if dev.type == "cpu":
+            if want is None:
+                return None
+            return make_mesh(want, devices=[dev] * want)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+        n = want
+        if n is None:
+            if len(devices) < 2:
+                return None
+            n = len(devices)
+        elif n > len(devices):
+            print(f"Warning: DELLY_TPU_MESH={n} exceeds the "
+                  f"{len(devices)} visible devices; using "
+                  f"{len(devices)}.", file=sys.stderr)
+            n = len(devices)
+        return make_mesh(n, devices=devices)
+
+    from delly_tpu_torch.parallel import dispatch
+    with dispatch.use_mesh_factory(build_mesh):
+        yield None
 
 
 def _run_command(args) -> int:
-    # The JAX package runs merge, filter and asm in process 0 only of a
-    # process world; the port runs one process (hostaxis.maybe_init
-    # refuses more), so every command runs here.
+    if args.command in ("merge", "filter", "asm"):
+        # steps of one process: in a world of several, process 0 alone
+        # runs them (every process writing the same outputs would race),
+        # and everyone meets at the barrier, so that a script run by
+        # every process can chain commands
+        from delly_tpu_torch.parallel import hostaxis
+        if hostaxis.process_count() > 1:
+            if not hostaxis.is_writer():
+                hostaxis.barrier(f"{args.command}-done")
+                return 0
+            try:
+                return _run_command_inner(args)
+            finally:
+                hostaxis.barrier(f"{args.command}-done")
+    return _run_command_inner(args)
+
+
+def _run_command_inner(args) -> int:
     if args.command == "merge":
         return _run_merge(args)
     if args.command == "filter":

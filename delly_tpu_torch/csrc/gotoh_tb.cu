@@ -41,6 +41,7 @@
 namespace {
 
 constexpr int kMaxStages = 2;   // windows in flight per walk, at most
+constexpr int kMaxDevices = 64; // devices whose attribute is tracked
 
 // One interior step from state `last` (0 = S, 1 = H, 2 = V) on a cell's
 // direction bits b (S==H, S==V, H opened, V opened), as 16 entries of 4
@@ -201,8 +202,14 @@ extern "C" int gotoh_tb_launch(const void* bits, const void* mlen,
       stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
   const int smem = stages * rows * K + 2 * K;   // windows, codes
-  static int allowed = 0;   // the kernel's shared memory limit, once raised
-  if (smem > allowed) {
+  // the kernel's shared memory limit, once raised on each device: a
+  // function's attributes belong to the context of the current device
+  static int allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return (int)derr;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > allowed[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
         gotoh_tb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     // all of the SM's shared memory, so that as many walks as fit share it
@@ -211,7 +218,7 @@ extern "C" int gotoh_tb_launch(const void* bits, const void* mlen,
           gotoh_tb_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
           cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
-    allowed = smem;
+    allowed[dev] = smem;
   }
   gotoh_tb_kernel<<<G, 1, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bits), static_cast<const int32_t*>(mlen),

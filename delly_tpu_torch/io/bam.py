@@ -327,14 +327,6 @@ def _read_header_blocks(reader, path: str):
             want *= 4
 
 
-def _cram_unsupported(path: str) -> None:
-    """CRAM input is not yet part of the PyTorch port (io/cram.py and
-    its codecs come in a later slice)."""
-    raise NotImplementedError(
-        f"{path}: CRAM input is not yet in the PyTorch port; "
-        f"convert it to BAM first")
-
-
 def read_bam_header(path: str, genome: str | None = None) -> "BamHeader":
     """Read only the header of a BAM/CRAM (role of sam_hdr_read for the
     startup checks — no record decompression for BAM)."""
@@ -342,7 +334,6 @@ def read_bam_header(path: str, genome: str | None = None) -> "BamHeader":
         magic = fh.read(4)
     if magic == b"CRAM":
         # header-only container walk — no record decode, no transcode
-        _cram_unsupported(path)
         from delly_tpu_torch.io.cram import CramStream
         cs = CramStream(path, genome)
         try:
@@ -465,7 +456,6 @@ class BamFile:
             if streaming:
                 # container-granular region decode (io/cram.CramStream):
                 # memory stays O(region) like the indexed BAM path
-                _cram_unsupported(path)
                 from delly_tpu_torch.io.cram import CramStream
                 self._cram = CramStream(path, genome)
                 self.header = BamHeader(text=self._cram.sam_text,
@@ -477,7 +467,6 @@ class BamFile:
             # small CRAM: decode + transcode to an uncompressed BAM
             # stream once, then every downstream consumer (SoA index,
             # native passes, record parsing) runs unchanged (io/cram.py).
-            _cram_unsupported(path)
             from delly_tpu_torch.io.cram import cram_to_bam_bytes
             with open(path, "rb") as fh:
                 data = cram_to_bam_bytes(fh.read(), genome)

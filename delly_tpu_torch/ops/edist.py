@@ -501,7 +501,9 @@ def batched_edit_distance(queries, qlens, targets, tlens, mode=MODE_NW):
     (ops/myers_cuda.py), at any query width; larger alphabets take
     the row-scan, each batch counted as ``rowscan``
     (parallel/dispatch.py). Every batch goes to the device: there is no
-    pair or cell gate."""
+    pair or cell gate. Under an active mesh the batches K1 serves are
+    cut into contiguous chunks, one per device of the mesh
+    (ops/myers_cuda.py); the row-scan runs on the run's device."""
     from delly_tpu_torch.ops.myers_cuda import batched_edit_distance_myers
     from delly_tpu_torch.parallel import dispatch
     out = batched_edit_distance_myers(queries, qlens, targets, tlens, mode)

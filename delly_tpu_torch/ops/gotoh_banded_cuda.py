@@ -280,8 +280,18 @@ def _check(name, dev, specs):
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def _check_lengths(name: str, mlen, nlen, M: int) -> None:
-    """The kernels index the sequences and the tile by these lengths."""
+def _check_lengths(name: str, mlen, nlen, M: int,
+                   host_lengths=None) -> None:
+    """The kernels index the sequences and the tile by these lengths.
+    `host_lengths` are numpy copies of mlen and nlen, checked in their
+    place, so that the check reads nothing back from the card."""
+    if host_lengths is not None:
+        hm, hn = host_lengths
+        if hm.shape != tuple(mlen.shape) or hn.shape != tuple(nlen.shape):
+            raise ValueError(f"{name}: host_lengths have shapes {hm.shape} "
+                             f"and {hn.shape}, expected "
+                             f"{tuple(mlen.shape)}")
+        mlen, nlen = hm, hn
     if len(mlen) and not bool(((nlen >= 1) & (nlen <= mlen)
                                & (mlen <= M)).all()):
         raise ValueError(f"{name}: lengths must satisfy 1 <= nlen <= mlen "
@@ -298,17 +308,19 @@ def _check_mb(name: str, M: int, B: int) -> None:
 
 def banded_forward(s1, s2, mlen, nlen, B: int, hfree: bool, vfree: bool,
                    match: int, mismatch: int, go: int, ge: int,
-                   spread: bool = False):
+                   spread: bool = False, host_lengths=None):
     """K3: (best (G,) int32, bits (G, M, B) uint8) for s1, s2 (G, M) uint8
     and mlen, nlen (G,) int32 with 1 <= nlen <= mlen <= M. `spread`
     keeps its blocks on SMs of their own (for launches that together hold
-    fewer jobs than the card has SMs); it does not change the result."""
+    fewer jobs than the card has SMs); it does not change the result.
+    `host_lengths`: the numpy mlen and nlen that the caller uploaded,
+    checked in place of the card's (see _check_lengths)."""
     G, M = s1.shape
     _check_mb("gotoh_banded", M, B)
     _check("gotoh_banded", s1.device, (
         ("s1", s1, torch.uint8, (G, M)), ("s2", s2, torch.uint8, (G, M)),
         ("mlen", mlen, torch.int32, (G,)), ("nlen", nlen, torch.int32, (G,))))
-    _check_lengths("gotoh_banded", mlen, nlen, M)
+    _check_lengths("gotoh_banded", mlen, nlen, M, host_lengths)
     if s1.device.type == "cpu":
         return banded_forward_plain(s1, s2, mlen, nlen, B, hfree, vfree,
                                     match, mismatch, go, ge)
@@ -328,14 +340,15 @@ def banded_forward(s1, s2, mlen, nlen, B: int, hfree: bool, vfree: bool,
     return best, bits
 
 
-def banded_traceback(bits, mlen, nlen):
-    """K3-tb: (codes (G, 2M) uint8 in walk order, lens (G,) int32)."""
+def banded_traceback(bits, mlen, nlen, host_lengths=None):
+    """K3-tb: (codes (G, 2M) uint8 in walk order, lens (G,) int32).
+    `host_lengths` as in banded_forward."""
     G, M, B = bits.shape
     _check_mb("gotoh_banded_tb", M, B)
     _check("gotoh_banded_tb", bits.device, (
         ("bits", bits, torch.uint8, (G, M, B)),
         ("mlen", mlen, torch.int32, (G,)), ("nlen", nlen, torch.int32, (G,))))
-    _check_lengths("gotoh_banded_tb", mlen, nlen, M)
+    _check_lengths("gotoh_banded_tb", mlen, nlen, M, host_lengths)
     if bits.device.type == "cpu":
         return banded_traceback_plain(bits, mlen, nlen)
     if bits.device.type != "cuda":
@@ -410,7 +423,9 @@ def gotoh_banded_batch(jobs, ac=(False, False), sc: DnaScore | None = None,
     serve take a host DP and count as host routes. Each (band, M, end-gap
     config) bucket, split at TILE_BYTES, is one K3 and one K3-tb launch;
     on the card all buckets' K3 launches run at once on their own
-    streams, then their K3-tb launches, before one copy back."""
+    streams, then their K3-tb launches, before one copy back. Under an
+    active mesh (parallel/dispatch.py) every bucket is cut into
+    contiguous chunks, one per device, after the host-route gates."""
     from delly_tpu_torch.utils import torchenv
 
     sc = sc or DnaScore()
@@ -448,27 +463,27 @@ def gotoh_banded_batch(jobs, ac=(False, False), sc: DnaScore | None = None,
                   for lo in range(0, len(idxs), step)]
     if not parts:
         return results
-    dev = torchenv.device()
-    # a round of fewer jobs than SMs: one job per SM, none sharing
-    spread = dev.type == "cuda" and sum(len(p[3]) for p in parts) <= (
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+    mesh = dispatch.get_mesh()
+    if mesh is None:
+        outs = _run_parts(torchenv.device(), parts, prep, sc)
+    else:
+        # every part cut into contiguous chunks, one per device; a
+        # device runs its chunks of all parts at once, as one device
+        # runs the parts
+        per = [dispatch.cuts(len(p[3]), int(mesh.devices.size))
+               for p in parts]
 
-    def forward(B, hfree, vfree, part):
-        M = _bucket_m(max(prep[i][0].shape[1] for i in part))
-        packed = pack_jobs([prep[i][:2] for i in part], M)
-        s1, s2, ml, nl = (torch.from_numpy(x).to(dev) for x in packed)
-        best, bits = banded_forward(s1, s2, ml, nl, B, hfree, vfree,
-                                    sc.match, sc.mismatch, sc.go, sc.ge,
-                                    spread=spread)
-        return best, bits, ml, nl
+        def launch(pos, d):
+            sub = []
+            for (B, hf, vf, idxs), c in zip(parts, per):
+                lo, hi = c[pos]
+                if hi > lo:
+                    sub.append((B, hf, vf, idxs[lo:hi]))
+            return _run_parts(d, sub, prep, sc) if sub else None
 
-    fwd = run_concurrently(dev, [lambda p=p: forward(*p) for p in parts])
-    # the walks start once every forward pass has ended (their wrapper's
-    # length check reads the lengths back)
-    walks = run_concurrently(dev, [lambda f=f: banded_traceback(*f[1:])
-                                   for f in fwd])
-    for (_B, _hf, _vf, part), (best, *_r), (codes, lens) in zip(parts, fwd,
-                                                                walks):
+        outs = [o for r in dispatch.on_mesh(mesh, "gotoh_banded", launch)
+                if r is not None for o in r]
+    for part, best, codes, lens in outs:
         best = best.cpu().numpy()
         codes = codes.cpu().numpy()
         lens = lens.cpu().numpy()
@@ -478,6 +493,36 @@ def gotoh_banded_batch(jobs, ac=(False, False), sc: DnaScore | None = None,
             merged = create_alignment_codes(fwd_codes, a1, a2)
             results[idx] = _unswap(int(best[slot]), merged, a1, swap)
     return results
+
+
+def _run_parts(dev, parts, prep, sc) -> list:
+    """K3 and K3-tb on `dev` for parts [(band, hfree, vfree, job
+    indices)] of the prepared jobs: [(job indices, best, codes, lens)],
+    tensors on `dev`. On the card every part's K3 runs at once on a
+    stream of its own, then every part's K3-tb."""
+    # a round of fewer jobs than SMs: one job per SM, none sharing
+    spread = dev.type == "cuda" and sum(len(p[3]) for p in parts) <= (
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+
+    def forward(B, hfree, vfree, part):
+        M = _bucket_m(max(prep[i][0].shape[1] for i in part))
+        packed = pack_jobs([prep[i][:2] for i in part], M)
+        s1, s2, ml, nl = (torch.from_numpy(x).to(dev) for x in packed)
+        host = packed[2:]
+        best, bits = banded_forward(s1, s2, ml, nl, B, hfree, vfree,
+                                    sc.match, sc.mismatch, sc.go, sc.ge,
+                                    spread=spread, host_lengths=host)
+        return best, bits, ml, nl, host
+
+    fwd = run_concurrently(dev, [lambda p=p: forward(*p) for p in parts])
+    # the walks' streams wait for every forward pass (run_concurrently);
+    # the lengths are checked on the host, so nothing here waits for the
+    # card and a mesh's next device is launched at once
+    walks = run_concurrently(dev, [
+        lambda f=f: banded_traceback(*f[1:4], host_lengths=f[4])
+        for f in fwd])
+    return [(part, best, codes, lens) for (_B, _hf, _vf, part), (best, *_r),
+            (codes, lens) in zip(parts, fwd, walks)]
 
 
 def _unswap(best: int, merged: np.ndarray, a1, swap: bool):

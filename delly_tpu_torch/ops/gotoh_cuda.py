@@ -312,7 +312,9 @@ def gotoh_batch(jobs, ac=(False, False), sc: DnaScore | None = None):
     [(score, merged)] with the same values as ops.gotoh.gotoh per job.
     Jobs the kernel cannot serve (exotic alphabet, count-product
     overflow, oversized) take the host DP individually and count as
-    host routes."""
+    host routes. Under an active mesh (parallel/dispatch.py) each K
+    bucket is cut into contiguous chunks, one per device, after that
+    gate."""
     from delly_tpu_torch.utils import torchenv
 
     sc = sc or DnaScore()
@@ -327,18 +329,27 @@ def gotoh_batch(jobs, ac=(False, False), sc: DnaScore | None = None):
         K = _bucket_k(max(a1.shape[1], a2.shape[1]))
         by_bucket.setdefault(K, []).append(idx)
     dev = torchenv.device()
+    mesh = dispatch.get_mesh()
     for K, idxs in sorted(by_bucket.items()):
-        packed = pack_bucket([jobs[i] for i in idxs], K, sc)
-        prof, wc2, d2, ml, nl = (torch.from_numpy(x).to(dev) for x in packed)
-        best, bits = gotoh_forward(prof, wc2, d2, ml, nl, bool(ac[0]),
-                                   bool(ac[1]), int(sc.go), int(sc.ge))
-        codes, lens = gotoh_traceback(bits, ml, nl)
-        best = best.cpu().numpy()
-        codes = codes.cpu().numpy()
-        lens = lens.cpu().numpy()
-        for slot, idx in enumerate(idxs):
-            a1, a2 = jobs[idx]
-            fwd = codes[slot, :lens[slot]][::-1].astype(np.int64)
-            results[idx] = (int(best[slot]),
-                            create_alignment_codes(fwd, a1, a2))
+        def launch(d, lo, hi, K=K, idxs=idxs):
+            part = idxs[lo:hi]
+            packed = pack_bucket([jobs[i] for i in part], K, sc)
+            prof, wc2, d2, ml, nl = (torch.from_numpy(x).to(d)
+                                     for x in packed)
+            best, bits = gotoh_forward(prof, wc2, d2, ml, nl, bool(ac[0]),
+                                       bool(ac[1]), int(sc.go), int(sc.ge))
+            codes, lens = gotoh_traceback(bits, ml, nl)
+            return part, best, codes, lens
+
+        outs = ([launch(dev, 0, len(idxs))] if mesh is None else
+                dispatch.split_batch(mesh, "gotoh_msa", len(idxs), launch))
+        for part, best, codes, lens in outs:
+            best = best.cpu().numpy()
+            codes = codes.cpu().numpy()
+            lens = lens.cpu().numpy()
+            for slot, idx in enumerate(part):
+                a1, a2 = jobs[idx]
+                fwd = codes[slot, :lens[slot]][::-1].astype(np.int64)
+                results[idx] = (int(best[slot]),
+                                create_alignment_codes(fwd, a1, a2))
     return results

@@ -152,7 +152,9 @@ def batched_edit_distance_myers(queries, qlens, targets, tlens,
                                 mode: int = 0):
     """Numpy contract of the Pallas entry point. Returns (B,) int32, or
     None when the batch has more than MAX_ALPHA letters (the caller
-    row-scans those)."""
+    row-scans those). Under an active mesh (parallel/dispatch.py) the
+    batch is cut into contiguous chunks, one per device, after that
+    gate, with the whole batch's alphabet on every device."""
     from delly_tpu_torch.utils import torchenv
 
     q = np.ascontiguousarray(np.asarray(queries), dtype=np.uint8)
@@ -160,11 +162,20 @@ def batched_edit_distance_myers(queries, qlens, targets, tlens,
     lut = alphabet_lut(q, t)
     if lut is None:
         return None
-    dev = torchenv.device()
-    out = myers(torch.from_numpy(q).to(dev),
-                torch.as_tensor(np.asarray(qlens, dtype=np.int32), device=dev),
-                torch.from_numpy(t).to(dev),
-                torch.as_tensor(np.asarray(tlens, dtype=np.int32), device=dev),
-                torch.from_numpy(lut).to(dev), mode, alphabet_size(lut))
-    return out.cpu().numpy()
+    ql = np.asarray(qlens, dtype=np.int32)
+    tl = np.asarray(tlens, dtype=np.int32)
+    nalpha = alphabet_size(lut)
 
+    def launch(dev, lo, hi):
+        return myers(torch.from_numpy(q[lo:hi]).to(dev),
+                     torch.as_tensor(ql[lo:hi], device=dev),
+                     torch.from_numpy(t[lo:hi]).to(dev),
+                     torch.as_tensor(tl[lo:hi], device=dev),
+                     torch.from_numpy(lut).to(dev), mode, nalpha)
+
+    mesh = dispatch.get_mesh()
+    if mesh is None:
+        return launch(torchenv.device(), 0, len(q)).cpu().numpy()
+    outs = dispatch.split_batch(mesh, "edist", len(q), launch)
+    return np.concatenate([o.cpu().numpy() for o in outs] +
+                          [np.zeros(0, dtype=np.int32)])

@@ -9,8 +9,11 @@ The run's device is resolved once, from ``DELLY_TPU_TORCH_DEVICE``:
 - ``cpu``: every batch runs the kernels' plain PyTorch versions on the
   host (the CPU tests ask for this).
 
-Multi-GPU dispatch is not part of this slice: with several visible
-GPUs the run uses ``cuda:0``.
+This is the device of everything that is not split over a mesh. The
+kernels' job batches go over the active mesh instead when there is one
+(parallel/dispatch.py; the CLI makes it from ``DELLY_TPU_MESH``, or
+over every visible GPU for large inputs), on the host too: under
+``cpu``, ``DELLY_TPU_MESH=N`` lists the CPU N times.
 """
 
 from __future__ import annotations

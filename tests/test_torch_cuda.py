@@ -453,3 +453,70 @@ def test_gotoh_batch_on_card_matches_host(card, monkeypatch):
         hs, hm = gotoh(a1, a2, ac=(True, True))
         assert s == hs
         np.testing.assert_array_equal(mg, hm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["edist", "gotoh_msa", "gotoh_banded",
+                                    "cnv_depth"])
+def test_mesh_over_every_card_matches_one_device(card, monkeypatch, engine):
+    """Each kernel's job batch split over a mesh of every visible card
+    (parallel/dispatch.py) equals the run without a mesh, and every card
+    ran a chunk. A mesh of one card runs the split on that card."""
+    from delly_tpu_torch.ops.depth_math import window_depth
+    from delly_tpu_torch.ops.edist import batched_edit_distance
+    from delly_tpu_torch.parallel.depth_step import depth_windows_on_mesh
+    from delly_tpu_torch.parallel.mesh import make_mesh
+    from delly_tpu_torch.utils import torchenv
+
+    monkeypatch.setenv(torchenv.ENV, "cuda")
+    torchenv.reset()
+    mesh = make_mesh()
+    ndev = int(mesh.devices.size)
+    rng = np.random.default_rng(29)
+    prng = random.Random(29)
+    n = 7 * ndev + 2
+    if engine == "edist":
+        q, ql, t, tl, _lut = (x.numpy() for x in
+                              _myers_case(29, n, 200, 300, 4))
+        run = lambda: batched_edit_distance(q, ql, t, tl, 1)  # noqa: E731
+    elif engine == "gotoh_msa":
+        jobs = [(_rand_seq(prng, 1, 300), _rand_seq(prng, 1, 300))
+                for _ in range(n)]
+        run = lambda: gotoh_cuda.gotoh_batch(jobs, ac=(True, False))  # noqa
+    elif engine == "gotoh_banded":
+        jobs = [(_rand_seq(prng, 1, 3000), _rand_seq(prng, 1, 2800))
+                for _ in range(n)]
+        run = lambda: gotoh_banded_cuda.gotoh_banded_batch(  # noqa: E731
+            jobs, ac=(True, True), band=1024)
+    else:
+        covsum = np.floor(rng.gamma(20.0, 8.0, size=50_000 + n))
+        expcov = rng.gamma(20.0, 8.0, size=covsum.size)
+        ok = rng.random(covsum.size) > 0.1
+        want = window_depth(np, covsum, np.where(ok, expcov, 0.0),
+                            2.0, 0.9, 2.0, 2.0)
+    try:
+        dispatch.reset()
+        if engine == "cnv_depth":
+            cn, logr, tot = depth_windows_on_mesh(mesh, covsum, expcov, ok,
+                                                  2.0, 0.9, 2.0, 2.0)
+            got = (cn, logr)
+            assert tot == (int(ok.sum()), float(covsum[ok].sum()))
+        else:
+            want = run()
+            with dispatch.use_mesh(mesh):
+                got = run()
+        hits = dispatch.device_snapshot()
+    finally:
+        torchenv.reset()
+    assert sorted(hits) == list(range(ndev))
+    assert all(hits[p].get(engine, 0) > 0 for p in range(ndev))
+    if engine == "edist":
+        np.testing.assert_array_equal(got, want)
+    elif engine == "cnv_depth":
+        # the coverage file prints these with %g (native.cov_rows)
+        for g, w in zip(got, want):
+            assert [f"{x:g}" for x in g] == [f"{x:g}" for x in w]
+    else:
+        for (s1, m1), (s2, m2) in zip(want, got):
+            assert s1 == s2
+            np.testing.assert_array_equal(m1, m2)

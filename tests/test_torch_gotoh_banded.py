@@ -279,3 +279,26 @@ def test_wrapper_checks():
     with pytest.raises(ValueError):
         gb.banded_traceback(torch.zeros((1, 512, 300), dtype=torch.uint8),
                             n, n)
+
+
+def test_host_lengths_checked_in_place():
+    """With `host_lengths` (the numpy lengths the caller uploaded, as
+    gotoh_banded_batch passes them) the wrappers check those and read
+    nothing back from the tensors: bad host lengths raise beside good
+    tensors, and host lengths of another shape raise."""
+    s = torch.zeros((1, 512), dtype=torch.uint8)
+    n = torch.ones(1, dtype=torch.int32)
+    bits = torch.zeros((1, 512, 512), dtype=torch.uint8)
+    one = np.ones(1, dtype=np.int32)
+    with pytest.raises(ValueError):
+        gb.banded_forward(s, s, n, n, 512, True, True, 5, -4, -10, -1,
+                          host_lengths=(one, one + 1))
+    with pytest.raises(ValueError):
+        gb.banded_traceback(bits, n, n, host_lengths=(one - 1, one - 1))
+    with pytest.raises(ValueError):
+        gb.banded_traceback(bits, n, n, host_lengths=(np.ones(2, np.int32),
+                                                      np.ones(2, np.int32)))
+    want = gb.banded_forward(s, s, n, n, 512, True, True, 5, -4, -10, -1)
+    got = gb.banded_forward(s, s, n, n, 512, True, True, 5, -4, -10, -1,
+                            host_lengths=(one, one))
+    assert all(torch.equal(a, b) for a, b in zip(want, got))

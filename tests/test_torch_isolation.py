@@ -62,9 +62,13 @@ def test_cuda_device_without_card_raises(monkeypatch):
 
 
 def test_host_axis_is_single_process(monkeypatch):
+    """Without a request the host axis is one process; a world that is
+    asked for and cannot form raises (tests/test_torch_hostaxis.py forms
+    real ones)."""
     from delly_tpu_torch.parallel import hostaxis
 
-    for var in ("DELLY_TPU_DIST", "DELLY_TPU_COORD", "DELLY_TPU_NPROC"):
+    for var in ("DELLY_TPU_DIST", "DELLY_TPU_COORD", "DELLY_TPU_NPROC",
+                "DELLY_TPU_PROC_ID"):
         monkeypatch.delenv(var, raising=False)
     assert hostaxis.maybe_init() is False
     assert hostaxis.process_count() == 1 and hostaxis.is_writer()
@@ -73,6 +77,54 @@ def test_host_axis_is_single_process(monkeypatch):
     monkeypatch.setenv("DELLY_TPU_NPROC", "2")
     with pytest.raises(RuntimeError):
         hostaxis.maybe_init()
+
+
+@pytest.mark.parametrize("env", [
+    {"DELLY_TPU_DIST": "pod"},
+    {"DELLY_TPU_DIST": "auto"},
+    {"DELLY_TPU_COORD": "localhost:1234", "DELLY_TPU_PROC_ID": "0"},
+    {"DELLY_TPU_COORD": "localhost:1234", "DELLY_TPU_NPROC": "two",
+     "DELLY_TPU_PROC_ID": "0"},
+])
+def test_host_axis_world_that_cannot_form_raises(monkeypatch, env):
+    """An unknown DELLY_TPU_DIST, torchrun's rendezvous without its
+    variables, and an env triplet with a word missing or not a number
+    raise: the port never carries on as one process."""
+    import torch.distributed as dist
+
+    from delly_tpu_torch.parallel import hostaxis
+
+    for var in ("DELLY_TPU_DIST", "DELLY_TPU_COORD", "DELLY_TPU_NPROC",
+                "DELLY_TPU_PROC_ID", "MASTER_ADDR", "MASTER_PORT",
+                "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    with pytest.raises(RuntimeError):
+        hostaxis.maybe_init()
+    assert not dist.is_initialized() and hostaxis.process_count() == 1
+
+
+def test_cram_run_under_mesh_imports_no_jax(tmp_path, monkeypatch):
+    """A port CLI run over a CRAM under DELLY_TPU_MESH=2 ends with
+    neither jax nor any delly_tpu module imported."""
+    from bamsynth import make_multi_sv_dataset
+    from torch_card import run_ok
+
+    from delly_tpu_torch.io.bam import BamFile
+    from delly_tpu_torch.io.cram import write_cram
+
+    bam, fa, _truth = make_multi_sv_dataset(
+        str(tmp_path), n_contigs=1, contig_len=100_000, pairs_per_contig=1500)
+    cram = str(tmp_path / "r0.cram")
+    write_cram(BamFile(bam), fa, cram, version=(3, 1))
+    monkeypatch.setenv("DELLY_TPU_MESH", "2")
+    out = run_ok("delly_tpu_torch", [
+        ["sr", "-g", fa, "-o", str(tmp_path / "o.vcf"), cram]], tmp_path)
+    assert out["leaked"] == []
+    assert out["counts"]["host_routes"] == 0
+    body = [ln for ln in open(tmp_path / "o.vcf") if not ln.startswith("#")]
+    assert body
 
 
 def test_other_words_not_ported(capsys):
