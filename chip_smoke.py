@@ -4,16 +4,18 @@
 
 1. Prints the card (nvidia-smi name and power limit) and builds the
    kernels K1 (csrc/myers.cu), K2 (csrc/gotoh.cu), K2-tb
-   (csrc/gotoh_tb.cu), K3 (csrc/gotoh_banded.cu) and K3-tb
-   (csrc/gotoh_banded_tb.cu) with nvcc for sm_90a, one process per
+   (csrc/gotoh_tb.cu), K3 (csrc/gotoh_banded.cu), K3-tb
+   (csrc/gotoh_banded_tb.cu) and X1 (csrc/lcs.cu, the MSA's batched
+   LCS) with nvcc for sm_90a, one process per
    source, all started together, printing the build seconds and the
    -Xptxas -v register/spill lines; beside them K3 once more with
    K3_COUNT_INTERIOR into a cubin, and the probes of PROBE_SRC below.
    Counts, in cuobjdump -sass, the integer instructions per Myers word
    of K1's column loop (thread per pair) and step loop (lane groups), of
-   K2's row loop per cell, and of K3's interior
+   K2's row loop per cell, of K3's interior
    row loop per cell and per thread and row, beside the operations per
-   unit that each bound counts. Times the probes: ns per dependent
+   unit that each bound counts, and of X1's word loop per 64-bit word,
+   beside the operations its bound counts. Times the probes: ns per dependent
    shared-memory byte load (one K3-tb walk step's floor), and ns per
    block barrier and per cluster barrier of 2-16 blocks with a carry
    through (distributed) shared memory (what splitting a K3 job over a
@@ -29,14 +31,21 @@
    K2-tb at each bucket, and K1 and K2-tb beside that replayed from
    a CUDA graph (the kernels alone: at ~0.01-0.06 ms the wrapper's host
    overhead shows in the events); K2-tb's chain floor is the main
-   shape's longest walk x the chase probe's step.
+   shape's longest walk x the chase probe's step. Holds X1 against
+   lcs_plain on the card (exact) on deepgeno-like ~150 b pairs, a
+   long-split-like batch of ~12 kb pairs beside short ones, empty
+   strings, lengths at 64-bit word edges, N letters, b of 16,385 to
+   40,000 bases and 200 letters, each timed through the wrapper.
 3. Generates the svmix, deepgeno and long-split datasets with the port's
    copy of the generators and runs `sr` on each, and `sr -v` on
    deepgeno, through the CLI entry point on the card, with the launch
    counters set to 0 just before each run and read just after. Checks
    svmix against its truth (36/36 recall, precision 1.0), long-split
    against its truth (24/24 DELs, precision 1.0, every merge on K3/K3-tb),
-   every kernel's launches and no host routes. Then runs `sr` on the card
+   every kernel's launches and no host routes, and that each lcs_pairs
+   call launched X1 once; every X1 call of these runs is held against
+   lcs_plain on the card and timed (long-split's batch gives the
+   kernels line's X1 numbers). Then runs `sr` on the card
    on long split reads with 4 reads per DEL (2 DELs), where the profile
    merges wider than 4,096 columns take the host full DP, and prints the
    share of split-read assembly spent there.
@@ -82,7 +91,11 @@
    -c -u` run under DELLY_TPU_MESH=1 (and at N = the visible cards when
    there are more than one): every output, the coverage, segmentation
    and statistics files included, must equal the run without a mesh,
-   and every card must have run chunks (dispatch.device_snapshot). A
+   and every card must have run chunks (dispatch.device_snapshot);
+   beside them it counts the seeded float64 values whose log2, and
+   whose quotient by 0.9 (a Python divisor, and a tensor one), the card
+   rounds otherwise than numpy (the window math's reasons to take its
+   log2 on the host and to divide by purity as a tensor). A
    2-process gloo world on the one card
    (delly_tpu_torch/testing/hostaxis_worker.py) runs `sr` on svmix and
    `lr` on lr_sv; its VCFs must equal the one-process runs. Last, the
@@ -91,7 +104,8 @@
    (delly_tpu_torch/testing/trace_check.py): each prints its busy
    share, the union of its kernel and copy intervals over its wall, and
    its traced wall beside the untraced one; its trace must hold one
-   kernel record for every launch of the port's kernels it counted.
+   kernel record for every launch of the port's kernels it counted
+   (X1's among them).
 7. Starts the same sr and lr commands (not the bench-size deep-lr ones)
    with DELLY_TPU_TORCH_DEVICE=cpu (together, one torch thread each,
    with their stage profiles), and each workflow of phase 5 in one
@@ -111,7 +125,8 @@
    card output equals its CPU run's apart from ##fileDate (BCF decoded,
    gzip files decompressed).
 8. Prints the kernels line (K1's entry with its lr and asm launches,
-   pairs by shape and largest launch), then as the last line
+   pairs by shape and largest launch; X1's at long-split's batch, with
+   deepgeno's beside it), then as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}},
    N the visible cards (torch.cuda.device_count()).
 
@@ -174,6 +189,15 @@ GOTOH_OPS_PER_CELL = 42
 # out-of-band selects 3. phase_build counts what the kernels execute.
 BANDED_OPS_PER_CELL = 39
 BANDED_TB_OPS_PER_STEP = 16    # K3-tb step: offset, byte load, branch
+# 32-bit integer operations of one X1 word step (a row of a against one
+# 64-bit word of b), counted in the recurrence of lcs_many
+# (delly_tpu_torch/native/hostio.cpp:3045-3056), whose V - U equals
+# V & ~U because U holds only bits of V (no borrow chain): mask lookup 1,
+# U = V & M 2 (one per 32-bit half), V + U with the carry in and out 2
+# (an add and an add with carry over the halves), V = S | (V & ~U) 2 (one
+# three-input logic operation per half). Rows of a whose letter b lacks
+# change nothing and count no step.
+LCS_OPS_PER_WORD = 7
 PROBE_STEPS = 200_000
 
 PROBE_SRC = r'''
@@ -434,8 +458,9 @@ SASS_INS = re.compile(
 
 def sass_loops(path: str, kernel: str, must: str | None = None,
                avoid: tuple = (), count: str | None = None) -> dict:
-    """{template arguments: (instructions, integer instructions)} of the
-    main loop of each instantiation of `kernel` in `cuobjdump -sass` of
+    """{template arguments (() for a kernel that is no template):
+    (instructions, integer instructions)} of the main loop of each
+    instantiation of `kernel` in `cuobjdump -sass` of
     the library or cubin at `path`: the largest loop (a backward branch
     and its target) that holds the opcode `must` (if given) and none of
     `avoid`; with `count` (an opcode with its modifiers, such as LDS.U8)
@@ -447,7 +472,7 @@ def sass_loops(path: str, kernel: str, must: str | None = None,
     loops = {}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split(None, 1)[0]
-        if f"{len(kernel)}{kernel}I" not in name:
+        if not re.search(rf"{len(kernel)}{kernel}[IE]", name):
             continue
         targs = tuple(int(x) for x in re.findall(r"Li(\d+)E", name))
         ins = [(int(a, 16), op.split(".")[0], rest, op)
@@ -489,8 +514,9 @@ def kernel_sass(details, k3_count: str) -> dict:
     columns per lane between the warp-per-merge instantiations),
     K3 per cell and per thread and row (the interior path alone, from the
     build `k3_count` with K3_COUNT_INTERIOR; slope over 4 and 8 slots per
-    thread at 256 threads). Returns K3's interior row loops by (slots,
-    threads): integer instructions."""
+    thread at 256 threads), and X1 per 64-bit word and row of a (its
+    word loop, over the 64-bit stores of V that it holds). Returns K3's
+    interior row loops by (slots, threads): integer instructions."""
     from delly_tpu_torch.ops import _build
 
     k1 = sass_loops(_build._lib_path("myers"), "myers_thread_kernel",
@@ -511,6 +537,13 @@ def kernel_sass(details, k3_count: str) -> dict:
     k3i = sass_loops(k3_count, "banded_kernel", "BAR")
     k3_cell = slope(k3i, (4, 256), (8, 256), lambda t: t[0])
     k3_row = k3i[(4, 256)][1] - 4 * k3_cell
+    # X1's word loop: the loop with global loads and no letter lookup
+    # (LDS: the row loop and the mask build) or popcount (the count of
+    # zero bits), one 64-bit store of V per word
+    x1 = sass_loops(_build._lib_path("lcs"), "lcs_kernel", "LDG",
+                    avoid=("LDS", "POPC"), count="STG.E.64")
+    need(x1[()][2] > 0, "SASS: X1's word loop without 64-bit stores")
+    x1_word = x1[()][1] / x1[()][2]
     print(f"K1 SASS: {k1_word:g} integer instructions per Myers word in "
           f"the thread-per-pair column loop (W=1 to 2), {k1l_word:g} in the "
           f"lane groups' step loop (W=64 to 128); the bound counts "
@@ -531,6 +564,9 @@ def kernel_sass(details, k3_count: str) -> dict:
         f"cell and {k3_row:g} per thread and row at 256 threads; the bound "
         f"counts {BANDED_OPS_PER_CELL} per cell. Both paths in the row loop:"
         + ", ".join(f" {c}x{t} {a}" for (c, t), (_n, a) in sorted(k3.items())))
+    print(f"X1 SASS: {x1_word:g} integer instructions per 64-bit word and "
+          f"row of a ({x1[()][1]} in the word loop, {x1[()][2]} word(s) an "
+          f"iteration); the bound counts {LCS_OPS_PER_WORD}")
     details["sass"] = {
         "k1_column_loop": {str(k): v for k, v in k1.items()},
         "k1_step_loop": {str(k): v for k, v in k1l.items()},
@@ -544,7 +580,8 @@ def kernel_sass(details, k3_count: str) -> dict:
         "k3_row_loop_both_paths": {f"{c}x{t}": v
                                    for (c, t), v in k3.items()},
         "k3_row_loop_interior": {f"{c}x{t}": v for (c, t), v in k3i.items()},
-        "k3_integer_per_cell": k3_cell, "k3_integer_per_thread_row": k3_row}
+        "k3_integer_per_cell": k3_cell, "k3_integer_per_thread_row": k3_row,
+        "x1_word_loop": x1[()], "x1_integer_per_word": x1_word}
     return {k: a for k, (_n, a) in k3i.items()}
 
 
@@ -981,6 +1018,129 @@ def measure_banded(dev, launches, err, sass_loops, step_ns) -> tuple:
     return k3, tb
 
 
+def _lcs_batch(rng, lengths, letters=b"ACGT"):
+    """A padded (a, alens, b, blens) batch of (m, n) lengths: every
+    other b a mutated copy of its a (5% substitutions), as split reads
+    of one SV are, the rest unrelated; padding bytes 0."""
+    alpha = np.frombuffer(letters, dtype=np.uint8)
+    nb = len(lengths)
+    a = np.zeros((nb, max(1, max(m for m, _ in lengths))), dtype=np.uint8)
+    b = np.zeros((nb, max(1, max(n for _, n in lengths))), dtype=np.uint8)
+    for i, (m, n) in enumerate(lengths):
+        base = alpha[rng.integers(0, len(alpha), max(m, n))]
+        a[i, :m] = base[:m]
+        y = (base[:n].copy() if i % 2 == 0
+             else alpha[rng.integers(0, len(alpha), n)])
+        hit = rng.random(n) < 0.05
+        y[hit] = alpha[rng.integers(0, len(alpha), int(hit.sum()))]
+        b[i, :n] = y
+    return (a, np.array([m for m, _ in lengths], dtype=np.int32), b,
+            np.array([n for _, n in lengths], dtype=np.int32))
+
+
+def lcs_bound(a, al, b, bl) -> dict:
+    """X1's bound for one batch (numpy inputs): LCS_OPS_PER_WORD integer
+    operations for every word step the pairs need, sum over the pairs of
+    (rows of a whose letter occurs in b) x ceil(n_i / 64), and the bytes
+    of the inputs read once and the lengths written once."""
+    nb = len(a)
+    in_b = np.zeros((nb, 256), dtype=bool)
+    held = np.arange(b.shape[1])[None, :] < bl[:, None]
+    in_b[np.nonzero(held)[0], b[held]] = True
+    rows = (in_b[np.arange(nb)[:, None], a]
+            & (np.arange(a.shape[1])[None, :] < al[:, None])).sum(1)
+    steps = int((rows * ((bl.astype(np.int64) + 63) // 64)).sum())
+    # a and b bytes, the int32 alens, blens and lengths, the letter table
+    out = bound(a.nbytes + b.nbytes + 12 * nb + 256,
+                LCS_OPS_PER_WORD * steps)
+    out["word_steps"] = steps
+    return out
+
+
+def lcs_case(dev, args, nalpha, label, plain=False, recorded=None) -> dict:
+    """X1 on one batch of card tensors (a, alens, b, blens, lut) against
+    lcs_plain on the card (exact; and the lengths a run `recorded` for
+    these inputs), timed through the wrapper (CUDA events, 20 calls
+    after a warm-up), with its bound and, if `plain`, the plain
+    version's time."""
+    import torch
+
+    from delly_tpu_torch.ops.lcs_cuda import lcs
+    from delly_tpu_torch.ops.msa import lcs_plain
+
+    got = lcs(*args, nalpha)
+    want = lcs_plain(*args[:4])
+    torch.cuda.synchronize()
+    err = int((got.long() - want).abs().max()) if len(got) else 0
+    need(torch.equal(got.long(), want), f"X1 != plain on {label} "
+         f"(max {err})")
+    need(recorded is None or torch.equal(recorded.long(), want),
+         f"{label}: the run's X1 lengths != plain")
+    ms = cuda_ms(lambda: lcs(*args, nalpha), reps=20)
+    a, al, b, bl = (x.cpu().numpy() for x in args[:4])
+    out = {"pairs": len(a), "m": a.shape[1], "n": b.shape[1],
+           "nalpha": nalpha, "ms": ms, "max_abs_err": err,
+           **lcs_bound(a, al, b, bl)}
+    if plain:
+        out["plain_ms"] = timed(lambda: lcs_plain(*args[:4]))[1]
+    print(f"X1 {label}: {len(a)} pairs {a.shape[1]}x{b.shape[1]}, "
+          f"{nalpha} letters: equal; {ms:.4f} ms through the wrapper; "
+          f"bound {out['bound_ms']:.5f} ms "
+          f"({out['bound_by']}, {out['word_steps']} word steps)"
+          + (f"; plain {out['plain_ms']:.1f} ms" if plain else ""))
+    return out
+
+
+def check_lcs(dev, details) -> dict:
+    """X1 against lcs_plain on the card at the sr runs' shapes: deepgeno's
+    split reads (~150 b), long-split's ~12 kb split reads beside short
+    ones in one padded batch; and at the edges: empty strings, lengths
+    63/64/65/127/128/129, N letters, b of 16,385 to 40,000 bases and
+    200 letters. Exact equality; each case timed."""
+    import torch
+
+    from delly_tpu_torch.ops.lcs_cuda import letter_lut
+
+    rng = np.random.default_rng(SEED + 1)
+    edges = (0, 1, 63, 64, 65, 127, 128, 129)
+    cases = [
+        ("deepgeno ~150 b", [(140 + i % 21, 150 - i % 17)
+                             for i in range(4000)], b"ACGT"),
+        ("long-split mix", [(11_800 + 13 * i, 12_300 - 11 * i)
+                            for i in range(48)]
+         + [(150 - i % 9, 140 + i % 13) for i in range(48)], b"ACGTN"),
+        ("edges", [(m, n) for m in edges for n in edges], b"ACGT"),
+        ("N letters", [(150, 150)] * 200, b"ACGTN"),
+        ("b of 16-40 kb", [(400, 20_000), (400, 16_385), (300, 40_000),
+                           (200, 100)] * 4, b"ACGT"),
+        ("200 letters", [(300, 12_000)] * 6 + [(200, 190)] * 4,
+         bytes(range(20, 220)))]
+    out = {}
+    for label, lengths, letters in cases:
+        a, al, b, bl = _lcs_batch(rng, lengths, letters)
+        lut, nalpha = letter_lut(b, bl)
+        args = [torch.from_numpy(x).to(dev) for x in (a, al, b, bl, lut)]
+        out[label] = lcs_case(dev, args, nalpha, label,
+                              plain=label.startswith(("deepgeno", "long")))
+    details["x1_cases"] = out
+    return out
+
+
+def check_recorded_lcs(dev, records, details) -> dict:
+    """Holds every X1 call recorded in the sr runs ({run: recorder
+    list}) equal to lcs_plain on the card, and times each through the
+    wrapper, long-split's and deepgeno's beside the plain version."""
+    out = {}
+    for label, record in records.items():
+        for args, _kw, got in record:
+            out.setdefault(label, []).append(lcs_case(
+                dev, list(args[:5]), args[5], f"{label}, recorded",
+                plain=label in ("sr long-split", "sr deepgeno"),
+                recorded=got))
+    details["x1_recorded"] = out
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the sr slice end to end
 # ---------------------------------------------------------------------------
@@ -1127,7 +1287,7 @@ def svmix_score(vcf, truth):
 
 
 def phase_e2e(work, details):
-    from delly_tpu_torch.ops import gotoh_banded_cuda
+    from delly_tpu_torch.ops import gotoh_banded_cuda, lcs_cuda
     from delly_tpu_torch.testing.synth import (
         LONG_SPLIT, make_deep_geno_dataset, make_long_split_dataset,
         make_multi_sv_dataset,
@@ -1155,23 +1315,27 @@ def phase_e2e(work, details):
                           ls_bam],
     }
     # the kernels each run's path must have launched
-    path = {"sr svmix": ("myers", "gotoh", "gotoh_tb"),
-            "sr deepgeno": ("myers", "gotoh", "gotoh_tb"),
+    path = {"sr svmix": ("myers", "gotoh", "gotoh_tb", "lcs"),
+            "sr deepgeno": ("myers", "gotoh", "gotoh_tb", "lcs"),
             "sr -v deepgeno": ("myers",),
-            "sr long-split": ("myers", "gotoh_banded", "gotoh_banded_tb")}
+            "sr long-split": ("myers", "gotoh_banded", "gotoh_banded_tb",
+                              "lcs")}
     launches = {}
     k3_launches = []
+    lcs_records = {}
     for label, argv in cmds.items():
         argv = [a.replace("{}", "cuda") if a.endswith(".{}.vcf") else a
                 for a in argv]
-        wraps = []
+        acc, wraps = msa_timers()
+        rec = lcs_records.setdefault(label, [])
+        wraps.append((lcs_cuda, "lcs", recorder(rec)))
         if label == "sr long-split":
-            acc, wraps = msa_timers()
             wraps.append((gotoh_banded_cuda, "banded_forward",
                           recorder(k3_launches)))
         launches[label], stages = run_card(argv, details, label, wraps)
-        if wraps:
+        if "Split-read assembly" in stages:
             print_msa_split(label, stages, acc, details)
+        lcs_once(label, launches[label], acc, rec)
         need(launches[label]["host_routes"] == 0,
              f"{label}: {launches[label]['host_routes']} host routes")
         for name in path[label]:
@@ -1187,7 +1351,18 @@ def phase_e2e(work, details):
                              "calls": nc, "k3_jobs": sum(
                                  len(a[0]) for a, _kw, _o in k3_launches)}
     need(tp == nt == 24 and good == nc, "long-split truth check")
-    return launches, k3_launches, cmds
+    return launches, k3_launches, cmds, {k: v for k, v in
+                                         lcs_records.items() if v}
+
+
+def lcs_once(label, counts, acc, record) -> None:
+    """Each lcs_pairs call of a run launched X1 once: the run's launches
+    equal its X1 calls (wrapped by a recorder) and its lcs_pairs calls
+    (timed by msa_timers)."""
+    calls = acc["lcs_pairs"]["calls"]
+    need(counts["lcs"] == len(record) == calls,
+         f"{label}: {counts['lcs']} X1 launches, {len(record)} X1 calls, "
+         f"{calls} lcs_pairs calls")
 
 
 def start_host(args, err_path, **env) -> tuple:
@@ -1263,6 +1438,7 @@ def phase_host_dp(work, details) -> None:
     Checks the calls and prints the seconds of split-read assembly spent
     in the host full DP, in the corridor batches (K3/K3-tb with the host
     packing around them) and in the MSA's batched LCS."""
+    from delly_tpu_torch.ops import lcs_cuda
     from delly_tpu_torch.testing.synth import make_long_split_dataset
 
     bam, fa, truth = make_long_split_dataset(
@@ -1270,10 +1446,13 @@ def phase_host_dp(work, details) -> None:
         reads_per_del=4, read_len=12_000, jitter=200,
         pairs_per_contig=20_000, name="hostdp")
     acc, wraps = msa_timers()
+    rec = []
+    wraps.append((lcs_cuda, "lcs", recorder(rec)))
     vcf = os.path.join(work, "hostdp.vcf")
     label = "sr long-split, 4 reads per DEL"
     counts, stages = run_card(["sr", "-g", fa, "-o", vcf, bam], details,
                               label, wraps)
+    lcs_once(label, counts, acc, rec)
     tp, nt, good, nc = svmix_score(vcf, truth)
     need(tp == nt == 2 and good == nc, f"{label}: truth check")
     need(counts["host_routes"] > 0
@@ -1950,6 +2129,21 @@ def phase_mesh(work, details, cmds, flows) -> dict:
           f"otherwise than numpy; {shown} of them print otherwise with %g")
     details["log2_rounding"] = {"values": len(x), "differ": len(diff),
                                 "differ_g": shown}
+    # the copy number's division by purity, a Python number: on the card
+    # torch multiplies by its reciprocal, which rounds otherwise, so
+    # parallel/depth_step.py divides by a 0-dim tensor on the card
+    xc = torch.from_numpy(x).cuda()
+    by_number = int(((xc / 0.9).cpu().numpy() != x / 0.9).sum())
+    by_tensor = int(((xc / torch.tensor(0.9, dtype=torch.float64,
+                                        device="cuda")).cpu().numpy()
+                     != x / 0.9).sum())
+    print(f"float64 x / 0.9: the card rounds {by_number} of {len(x)} values "
+          f"otherwise than numpy with a Python divisor, {by_tensor} with a "
+          f"tensor divisor")
+    details["division_rounding"] = {"values": len(x), "by_number": by_number,
+                                    "by_tensor": by_tensor}
+    need(by_tensor == 0, "float64 division by a tensor on the card differs "
+         "from numpy")
     launches = {}
     for n in [1] + ([ndev] if ndev > 1 else []):
         for name, (argv, ref) in runs.items():
@@ -2219,7 +2413,9 @@ def main() -> int:
         rng = np.random.default_rng(SEED)
         k1 = check_myers(dev, rng, details)
         k2, tb = check_gotoh(dev, rng, details, step_ns)
-        launches, k3_launches, cmds = phase_e2e(work, details)
+        check_lcs(dev, details)
+        launches, k3_launches, cmds, lcs_records = phase_e2e(work, details)
+        x1 = check_recorded_lcs(dev, lcs_records, details)
         cram_pool, cram_futs = start_cram_writes(work, cmds)
         phase_host_dp(work, details)
         lr_launches, lr_cmds, k1_lr = phase_lr(dev, work, details, gen["lr"])
@@ -2257,6 +2453,16 @@ def main() -> int:
     def total(name):
         return sum(run[name] for run in launches.values())
 
+    ls, dg = x1["sr long-split"][0], x1["sr deepgeno"][0]
+    x1_meas = {**ls, "shapes": f"{ls['pairs']} pairs, {ls['m']}x{ls['n']} "
+               f"uint8, long-split's batch", "deepgeno_shapes":
+               f"{dg['pairs']} pairs, {dg['m']}x{dg['n']} uint8",
+               **{f"deepgeno_{k}": dg[k] for k in ("ms", "plain_ms",
+                                                   "bound_ms", "bound_by")},
+               "case_ms": {k: v["ms"] for k, v in
+                           details["x1_cases"].items()},
+               "case_bound_ms": {k: v["bound_ms"] for k, v in
+                                 details["x1_cases"].items()}}
     kernels = []
     for name, src, rep, meas in (
             ("myers", "delly_tpu_torch/csrc/myers.cu",
@@ -2269,7 +2475,9 @@ def main() -> int:
             ("gotoh_banded", "delly_tpu_torch/csrc/gotoh_banded.cu",
              "delly_tpu/ops/gotoh_banded.py:192", k3),
             ("gotoh_banded_tb", "delly_tpu_torch/csrc/gotoh_banded_tb.cu",
-             "delly_tpu/ops/gotoh_banded.py:342", k3tb)):
+             "delly_tpu/ops/gotoh_banded.py:342", k3tb),
+            ("lcs", "delly_tpu_torch/csrc/lcs.cu",
+             "delly_tpu/ops/msa.py:39", x1_meas)):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": total(name),
@@ -2282,7 +2490,8 @@ def main() -> int:
             "shapes": meas["shapes"],
             **{k: v for k, v in meas.items() if k.startswith(
                 ("row_loop", "launch_ms", "longest", "smem_step",
-                 "chain_floor", "case_", "device_ms", "lr_", "asm_"))}})
+                 "chain_floor", "case_", "device_ms", "lr_", "asm_",
+                 "deepgeno_", "word_steps"))}})
     details["kernels"] = kernels
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:

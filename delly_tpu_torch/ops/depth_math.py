@@ -6,8 +6,8 @@ never drift from production semantics.
 Formulas are the reference's: coral.h:296-414 (purity/ploidy-adjusted
 CN and logR per window) and bolog.h:88-133 (Gaussian CN
 log10-likelihoods with SMALLEST_GL clamping). Functions take the array
-module (numpy or jax.numpy) so the identical expression graph runs on
-host or device.
+module (numpy or torch) so the identical expression graph runs on host
+or device.
 """
 
 from __future__ import annotations
@@ -22,12 +22,13 @@ _LOG10E = 0.4342944819032518
 _EXP_UNDERFLOW = -745.1332191019412
 
 
-def window_depth(xp, covsum, expcov, expected_cn, purity, ctrl_ploidy,
-                 chr_ploidy):
-    """Per-window copy number + log2 ratio (coral.h:296-414):
-    cn = (expected_cn * cov/exp - ctrl_ploidy*(1-purity)) / purity,
-    logR = log2((cov+1)/(exp+1)); windows without expected coverage
-    report the chromosome ploidy and logR 0."""
+def window_cn_ratio(xp, covsum, expcov, expected_cn, purity, ctrl_ploidy,
+                    chr_ploidy):
+    """Per-window copy number and depth ratio (coral.h:296-414):
+    cn = (expected_cn * cov/exp - ctrl_ploidy*(1-purity)) / purity and
+    ratio = (cov+1)/(exp+1); windows without expected coverage report
+    the chromosome ploidy. Only +, -, * and /, so the mesh route
+    (parallel/depth_step.py) runs it on the card."""
     ok = expcov > 0
     safe = xp.where(ok, expcov, 1.0)
     cn = xp.where(
@@ -35,8 +36,22 @@ def window_depth(xp, covsum, expcov, expected_cn, purity, ctrl_ploidy,
         (expected_cn * covsum / safe - ctrl_ploidy * (1.0 - purity))
         / purity,
         chr_ploidy)
-    logr = xp.where(ok, xp.log2((covsum + 1.0) / (safe + 1.0)), 0.0)
-    return cn, logr
+    return cn, (covsum + 1.0) / (safe + 1.0)
+
+
+def window_logr(xp, expcov, ratio):
+    """logR = log2 of window_cn_ratio's ratio; 0 for windows without
+    expected coverage."""
+    return xp.where(expcov > 0, xp.log2(ratio), 0.0)
+
+
+def window_depth(xp, covsum, expcov, expected_cn, purity, ctrl_ploidy,
+                 chr_ploidy):
+    """Per-window copy number + log2 ratio (coral.h:296-414):
+    window_cn_ratio's cn and window_logr of its ratio."""
+    cn, ratio = window_cn_ratio(xp, covsum, expcov, expected_cn, purity,
+                                ctrl_ploidy, chr_ploidy)
+    return cn, window_logr(xp, expcov, ratio)
 
 
 def cn_log10_likelihoods(xp, mean, sd, max_cn: int = 10):

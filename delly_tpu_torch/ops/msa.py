@@ -14,10 +14,11 @@ from delly_tpu_torch.parallel import dispatch
 
 def lcs_plain(a, alens, b, blens):
     """Batched LCS lengths on torch tensors (counterpart of the JAX
-    package's _lcs_device_fn, msa.py:39-66): a loop over the rows of
-    a, each row elementwise over the columns of b plus a prefix max
-    (torch.cummax), vectorized over the batch. a (B, M) and b (B, N)
-    uint8, lengths (B,) int32; returns (B,) int64."""
+    package's _lcs_device_fn, msa.py:39-66), the plain version of X1
+    (ops/lcs_cuda.py): a loop over the rows of a, each row elementwise
+    over the columns of b plus a prefix max (torch.cummax), vectorized
+    over the batch. a (B, M) and b (B, N) uint8, lengths (B,) int32;
+    returns (B,) int64."""
     import torch
 
     B, M = a.shape
@@ -38,13 +39,16 @@ def lcs_plain(a, alens, b, blens):
 
 def lcs_pairs(pairs: list) -> np.ndarray:
     """Batched LCS lengths for (a, b) string pairs: one padded batch on
-    the run's device (utils.torchenv.device()), with no size gate.
-    Used for the MSA similarity matrix (reference HOT LOOP 3 feeder,
-    msa.h:10-44)."""
+    the run's device (utils.torchenv.device()), with no size gate, in
+    one call of ops/lcs_cuda.lcs (on the card one launch of X1,
+    csrc/lcs.cu). Not split over a mesh,
+    as the JAX package's is not. Used for the MSA similarity matrix
+    (reference HOT LOOP 3 feeder, msa.h:10-44)."""
     if not pairs:
         return np.zeros(0, dtype=np.int64)
     import torch
 
+    from delly_tpu_torch.ops.lcs_cuda import lcs, letter_lut
     from delly_tpu_torch.utils import torchenv
     m = max(1, max(len(a) for a, _ in pairs))
     n = max(1, max(len(b) for _, b in pairs))
@@ -60,9 +64,10 @@ def lcs_pairs(pairs: list) -> np.ndarray:
         b[i, :len(yb)] = np.frombuffer(yb, dtype=np.uint8)
         al[i] = len(xb)
         bl[i] = len(yb)
+    lut, nalpha = letter_lut(b, bl)
     dev = torchenv.device()
-    out = lcs_plain(torch.from_numpy(a).to(dev), torch.from_numpy(al).to(dev),
-                    torch.from_numpy(b).to(dev), torch.from_numpy(bl).to(dev))
+    out = lcs(*(torch.from_numpy(x).to(dev) for x in (a, al, b, bl, lut)),
+              nalpha)
     return out.cpu().numpy().astype(np.int64)
 
 

@@ -44,7 +44,8 @@ import contextlib
 import threading
 from collections import Counter
 
-KERNELS = ("myers", "gotoh", "gotoh_tb", "gotoh_banded", "gotoh_banded_tb")
+KERNELS = ("myers", "gotoh", "gotoh_tb", "gotoh_banded", "gotoh_banded_tb",
+           "lcs")
 
 launches = Counter()
 hits = Counter()            # (engine, mesh position) -> chunks run

@@ -18,8 +18,12 @@ object with the runs whose trace is short, in the long-lived process
 and in the fresh ones.
 
 The records' times drift from the profiler's first start in a process
-on (utils/profiling.py opens the trace's window a margin around the
-run). chip_smoke.py therefore traces its runs through `start`/`go`/
+on. utils/profiling.py opens the trace's window a margin around the
+run, and the long-lived process still loses records, so profile_run
+refuses a second trace in one process; the long-lived process here
+lifts that rule before each of its traced runs
+(profiling.allow_another_trace). chip_smoke.py therefore traces its
+runs through `start`/`go`/
 `finish`: each run in a process of its own that first brings CUDA up,
 loads every kernel library and starts the profiler once, then waits for
 `go`, so that its wall compares with an untraced run in a warm process.
@@ -43,8 +47,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 # csrc/*.cu (before "_kernel"), to the launch counter of dispatch.py
 KERNEL_OF = {"myers_thread": "myers", "myers_lanes": "myers",
              "gotoh": "gotoh", "gotoh_tb": "gotoh_tb",
-             "banded": "gotoh_banded", "banded_tb": "gotoh_banded_tb"}
-COUNTERS = ("myers", "gotoh", "gotoh_tb", "gotoh_banded", "gotoh_banded_tb")
+             "banded": "gotoh_banded", "banded_tb": "gotoh_banded_tb",
+             "lcs": "lcs"}
+COUNTERS = ("myers", "gotoh", "gotoh_tb", "gotoh_banded", "gotoh_banded_tb",
+            "lcs")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # seconds that a process of `start` takes to get ready for `go`
 WARMUP_S = 20.0
@@ -228,6 +234,7 @@ def _measure(seconds: float, fresh: int) -> None:
     from delly_tpu_torch.ops import _build
     from delly_tpu_torch.testing.synth import (make_deep_geno_dataset,
                                                make_lr_sv_dataset)
+    from delly_tpu_torch.utils import profiling
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
@@ -272,6 +279,7 @@ def _measure(seconds: float, fresh: int) -> None:
         for name, argv in cmds.items():
             stem = f"{work}/inproc{k}_{name.replace(' ', '')}"
             t0 = time.time()
+            profiling.allow_another_trace()
             res = traced_cli(argv, f"{stem}.trace", f"{stem}.profile.json")
             res["traced_s"] = time.time() - t0
             row("one process", name, k, res, time.time() - t_start)

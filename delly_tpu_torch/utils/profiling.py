@@ -12,7 +12,8 @@ Makefile:44-46 / delly.h:87-89 `#ifdef PROFILE`):
   that launched them; on a machine without a card, the host's torch
   operators instead. The busy share of a run (the union of its kernel
   and copy intervals over its wall) is read from that file
-  (chip_smoke.py ``busy_share``).
+  (chip_smoke.py ``busy_share``). A process traces one run:
+  ``profile_run`` refuses a second trace in the same process.
 """
 
 from __future__ import annotations
@@ -27,6 +28,20 @@ import time
 # drifts from the profiler's first start in a process on: the window
 # opens this long before the run and closes this long after it.
 TRACE_MARGIN_S = 0.5
+
+# Even so, the later traces of a long-lived process lose card records
+# (testing/trace_check.py: one process alternating card work with traced
+# runs lost every record of a one-launch run from about 80 s on, while
+# fresh processes lost none), so a process traces one run.
+_traced = False
+
+
+def allow_another_trace() -> None:
+    """Lifts the one-trace rule for this process's next traced run: for
+    a measurement of the records that the rule guards against
+    (testing/trace_check.py)."""
+    global _traced
+    _traced = False
 
 
 def _start_trace():
@@ -64,8 +79,17 @@ def profile_run(path: str):
             old_hook(msg)
         marks.append((time.time(), msg))
 
-    _log.hook = hook
     trace_dir = os.environ.get("DELLY_TPU_PROFILE_TRACE")
+    if trace_dir:
+        global _traced
+        if _traced:
+            raise RuntimeError(
+                "DELLY_TPU_PROFILE_TRACE: this process has traced a run "
+                "already, and torch.profiler loses the card's kernel records "
+                "in the later traces of a long-lived process; trace one run "
+                "per process")
+        _traced = True
+    _log.hook = hook
     prof = _start_trace() if trace_dir else None
     t0 = time.time()
     try:

@@ -20,9 +20,11 @@ from delly_tpu_torch.ops import gotoh_banded_cuda, gotoh_cuda
 from delly_tpu_torch.ops.gotoh import DnaScore, gotoh, to_align
 from delly_tpu_torch.ops.myers import (alphabet_lut, alphabet_size,
                                        myers_plain)
+from delly_tpu_torch.ops.lcs_cuda import lcs, letter_lut
+from delly_tpu_torch.ops.msa import lcs_plain
 from delly_tpu_torch.ops.myers_cuda import myers
 from delly_tpu_torch.parallel import dispatch
-from torch_card import card  # noqa: F401
+from torch_card import card, depth_windows  # noqa: F401
 
 ACS = [(False, False), (True, False), (False, True), (True, True)]
 
@@ -520,3 +522,119 @@ def test_mesh_over_every_card_matches_one_device(card, monkeypatch, engine):
         for (s1, m1), (s2, m2) in zip(want, got):
             assert s1 == s2
             np.testing.assert_array_equal(m1, m2)
+
+
+def _lcs_batch(seed, lengths, letters=b"ACGT"):
+    """A padded (a, alens, b, blens) batch of the given (m, n) lengths:
+    every other b a mutated copy of its a (5% substitutions), the rest
+    unrelated; padding bytes 0."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(letters, dtype=np.uint8)
+    nb = len(lengths)
+    mcap = max(1, max(m for m, _ in lengths))
+    ncap = max(1, max(n for _, n in lengths))
+    a = np.zeros((nb, mcap), dtype=np.uint8)
+    b = np.zeros((nb, ncap), dtype=np.uint8)
+    for i, (m, n) in enumerate(lengths):
+        base = alpha[rng.integers(0, len(alpha), max(m, n))]
+        a[i, :m] = base[:m]
+        if i % 2 == 0:
+            y = base[:n].copy()
+            hit = rng.random(n) < 0.05
+            y[hit] = alpha[rng.integers(0, len(alpha), int(hit.sum()))]
+        else:
+            y = alpha[rng.integers(0, len(alpha), n)]
+        b[i, :n] = y
+    al = np.array([m for m, _ in lengths], dtype=np.int32)
+    bl = np.array([n for _, n in lengths], dtype=np.int32)
+    return a, al, b, bl
+
+
+LCS_EDGES = (0, 1, 63, 64, 65, 127, 128, 129)
+LCS_CASES = {
+    # every pair of lengths at a word's edges, empty strings included
+    "edges": ([(m, n) for m in LCS_EDGES for n in LCS_EDGES], b"ACGT"),
+    "N letters": ([(150, 150)] * 40 + [(129, 65), (65, 129)], b"ACGTN"),
+    # deepgeno's split reads
+    "deepgeno ~150 b": ([(140 + i % 21, 150 - i % 17) for i in range(2000)],
+                        b"ACGT"),
+    # b of 32, 64 and 128 words beside short pairs
+    "2 kb": ([(300, 2048)] * 20 + [(300, 2000)] * 5, b"ACGT"),
+    "4 kb": ([(300, 4096)] * 20 + [(64, 100)] * 5, b"ACGT"),
+    "8 kb": ([(300, 8192)] * 20 + [(0, 8000)] * 5, b"ACGT"),
+    # long-split: ~12 kb split reads beside short ones in one batch
+    "long-split mix": ([(12_000 + 37 * i, 12_300 - 29 * i) for i in range(8)]
+                       + [(150, 140), (140, 151)] * 4, b"ACGTN"),
+    # b of more than 16,384 bases beside shorter pairs
+    "16 kb and more": ([(400, 20_000), (400, 16_384), (400, 16_385),
+                        (300, 17_000), (200, 100)] * 4, b"ACGT"),
+    "40 kb": ([(300, 40_000), (300, 33_000), (250, 5000)] * 3, b"ACGT"),
+    # 200 letters, each with its match masks
+    "many letters": ([(300, 12_000)] * 6 + [(200, 190)] * 4,
+                     bytes(range(20, 220))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LCS_CASES))
+def test_lcs_kernel_matches_plain(card, case):
+    """X1 (csrc/lcs.cu) against lcs_plain on the card, exact, from
+    empty strings and word edges to b of 40,000 bases and 200 letters;
+    one launch per call."""
+    lengths, letters = LCS_CASES[case]
+    a, al, b, bl = _lcs_batch(len(case), lengths, letters)
+    lut, nalpha = letter_lut(b, bl)
+    args = [torch.from_numpy(x).to(card) for x in (a, al, b, bl, lut)]
+    want = lcs_plain(*args[:4])
+    dispatch.reset()
+    got = lcs(*args, nalpha)
+    torch.cuda.synchronize()
+    assert dispatch.snapshot()["lcs"] == 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got.long().cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+def test_lcs_pairs_on_card_one_launch(card, monkeypatch):
+    """lcs_pairs on the card: one X1 launch per call, the lengths those
+    of the host's plain version."""
+    from delly_tpu_torch.ops.msa import lcs_pairs
+    from delly_tpu_torch.utils import torchenv
+
+    rng = random.Random(3)
+    pairs = [(_rand_seq(rng, 0, 300), _rand_seq(rng, 1, 320))
+             for _ in range(200)] + [("", "ACGT"), ("ACGT", "")]
+    monkeypatch.setenv(torchenv.ENV, "cpu")
+    torchenv.reset()
+    want = lcs_pairs(pairs)
+    monkeypatch.setenv(torchenv.ENV, "cuda")
+    torchenv.reset()
+    try:
+        dispatch.reset()
+        got = lcs_pairs(pairs)
+        assert dispatch.snapshot()["lcs"] == 1
+    finally:
+        torchenv.reset()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("purity", [1.0, 0.9])
+def test_depth_windows_on_card_bit_equal_to_numpy(card, purity):
+    """The CNV window math under a mesh of the card equals the numpy
+    route without a mesh bit for bit, on 3.2 M seeded windows, half of
+    them on a %g rounding boundary of their logR or cn: the card
+    computes cn and the ratio, the host its log2."""
+    from delly_tpu_torch.ops.depth_math import window_depth
+    from delly_tpu_torch.parallel.depth_step import depth_windows_on_mesh
+    from delly_tpu_torch.parallel.mesh import make_mesh
+
+    covsum, expcov, ok = depth_windows(np.random.default_rng(41), 3_200_000)
+    want_cn, want_logr = window_depth(np, covsum, np.where(ok, expcov, 0.0),
+                                      2.0, purity, 2.0, 2.0)
+    mesh = make_mesh(1, devices=[card])
+    cn, logr, tot = depth_windows_on_mesh(mesh, covsum, expcov, ok, 2.0,
+                                          purity, 2.0, 2.0)
+    assert cn.tobytes() == want_cn.tobytes()
+    assert logr.tobytes() == want_logr.tobytes()
+    assert tot == (int(ok.sum()), float(covsum[ok].sum()))

@@ -23,7 +23,8 @@ import sys
 import numpy as np
 import pytest
 
-from torch_card import output_lines, run_cli, torch_cpu  # noqa: F401
+from torch_card import depth_windows, output_lines, run_cli
+from torch_card import torch_cpu  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -158,6 +159,23 @@ def test_depth_windows_split_matches_numpy(mesh3):
     assert cn.tobytes() == cn_h.tobytes()
     assert logr.tobytes() == logr_h.tobytes()
     assert n_call == int(ok.sum()) and cov_tot == float(covsum[ok].sum())
+
+
+@pytest.mark.parametrize("purity", [1.0, 0.9])
+def test_depth_windows_split_on_rounding_boundaries(mesh3, purity):
+    """The same on 200,000 windows, half of them on a %g rounding
+    boundary of their logR or cn (tests/torch_card.py depth_windows):
+    cn and logR bit-equal to window_depth in numpy."""
+    from delly_tpu_torch.ops.depth_math import window_depth
+    from delly_tpu_torch.parallel.depth_step import depth_windows_on_mesh
+
+    covsum, expcov, ok = depth_windows(np.random.default_rng(43), 200_000)
+    cn_h, logr_h = window_depth(np, covsum, np.where(ok, expcov, 0.0),
+                                2.0, purity, 2.0, 2.0)
+    cn, logr, _tot = depth_windows_on_mesh(mesh3, covsum, expcov, ok, 2.0,
+                                           purity, 2.0, 2.0)
+    assert cn.tobytes() == cn_h.tobytes()
+    assert logr.tobytes() == logr_h.tobytes()
 
 
 # Runs each (DELLY_TPU_MESH, argv) step through the port's cli.main in

@@ -159,3 +159,32 @@ def check_case(result, port, case):
         assert output_lines(got) == output_lines(want), (case, got)
     return [[ln for ln in output_lines(w) if not ln.startswith("#")]
             for w, _ in pairs]
+
+
+def depth_windows(rng, n, boundary_share=0.5):
+    """Seeded CNV window inputs (covsum, expcov, ok) for the window math
+    (ops/depth_math.window_depth): integer fragment sums, GC-expected
+    coverages with a few zeros, ~10% of windows not callable. A share
+    of the windows is solved so that their logR (or, every fourth of
+    those, their cn at expected_cn 2, purity 1 and ctrl_ploidy 2) lies
+    on a rounding boundary of the coverage file's %g: halfway between
+    two six-digit values, where the last bit of a float64 decides the
+    printed digit."""
+    import numpy as np
+
+    covsum = np.floor(rng.gamma(20.0, 8.0, n))
+    expcov = rng.gamma(20.0, 8.0, n)
+    expcov[rng.random(n) < 0.02] = 0.0
+    ok = rng.random(n) > 0.1
+    k = int(n * boundary_share)
+    half = ((rng.integers(100_000, 1_000_000, k) + 0.5)
+            * 10.0 ** rng.integers(-7, -4, k).astype(np.float64))
+    sign = np.where(rng.random(k) < 0.5, -1.0, 1.0)
+    c = covsum[:k]
+    exp_logr = (c + 1.0) / np.exp2(sign * half) - 1.0
+    exp_cn = 2.0 * c / half
+    pick = np.arange(k) % 4 == 0
+    sol = np.where(pick, exp_cn, exp_logr)
+    keep = np.isfinite(sol) & (sol > 0)
+    expcov[:k][keep] = sol[keep]
+    return covsum, expcov, ok
