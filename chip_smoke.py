@@ -14,9 +14,12 @@
    of K1's column loop (thread per pair) and step loop (lane groups), of
    K2's row loop per cell, of K3's interior
    row loop per cell and per thread and row, beside the operations per
-   unit that each bound counts, and of X1's word loop per 64-bit word,
-   beside the operations its bound counts. Times the probes: ns per dependent
-   shared-memory byte load (one K3-tb walk step's floor), and ns per
+   unit that each bound counts, and of X1's lane groups' step loop per
+   64-bit word (slope over 4 to 8 words a lane) and per step, beside the
+   operations its bound counts. Times the probes: ns per dependent
+   shared-memory byte load (one K3-tb walk step's floor), ns per
+   dependent X1 wavefront step (a 64-bit add with the carry in and out
+   and a shuffle: X1's chain floor per step), and ns per
    block barrier and per cluster barrier of 2-16 blocks with a carry
    through (distributed) shared memory (what splitting a K3 job over a
    cluster would add per DP row).
@@ -33,9 +36,13 @@
    overhead shows in the events); K2-tb's chain floor is the main
    shape's longest walk x the chase probe's step. Holds X1 against
    lcs_plain on the card (exact) on deepgeno-like ~150 b pairs, a
-   long-split-like batch of ~12 kb pairs beside short ones, empty
+   long-split-like batch of 48 ~12 kb pairs beside 48 short ones, empty
    strings, lengths at 64-bit word edges, N letters, b of 16,385 to
-   40,000 bases and 200 letters, each timed through the wrapper.
+   40,000 bases (strips), 200 letters (masks in global memory) and b at
+   every layout's edge, each with the host's lengths (the launch
+   grouped by layout, lcs_cuda.schedule) and without, each timed through
+   the wrapper with its chain floor (the longest pair's steps x the X1
+   step probe).
 3. Generates the svmix, deepgeno and long-split datasets with the port's
    copy of the generators and runs `sr` on each, and `sr -v` on
    deepgeno, through the CLI entry point on the card, with the launch
@@ -45,7 +52,8 @@
    every kernel's launches and no host routes, and that each lcs_pairs
    call launched X1 once; every X1 call of these runs is held against
    lcs_plain on the card and timed (long-split's batch gives the
-   kernels line's X1 numbers). Then runs `sr` on the card
+   kernels line's X1 numbers, and the seeded 96-pair mix's time is
+   printed over it). Then runs `sr` on the card
    on long split reads with 4 reads per DEL (2 DELs), where the profile
    merges wider than 4,096 columns take the host full DP, and prints the
    share of split-read assembly spent there.
@@ -248,12 +256,37 @@ __global__ void cluster_kernel(int steps, int* out) {
   if (v == 0x7fffffff) out[0] = v;
 }
 
-// cluster 0: chase_kernel; 1: block_kernel; 2..16: cluster_kernel with
-// that many blocks of `threads`
+// one warp, one dependent X1 wavefront step per iteration: a 64-bit add
+// with the carry in and out through the carry flag (as csrc/lcs.cu adds),
+// then a shuffle of the carry to the next lane: X1's chain floor per step
+__global__ void lcs_step_kernel(int steps, int* out) {
+  uint64_t v = 0x9E3779B97F4A7C15ull * (threadIdx.x + 1), u = v >> 3;
+  uint32_t cin = threadIdx.x & 1u;
+  for (int i = 0; i < steps; ++i) {
+    uint32_t t, lo, hi, cy;
+    asm volatile("add.cc.u32 %0, %1, 0xFFFFFFFF;" : "=r"(t) : "r"(cin));
+    asm volatile("addc.cc.u32 %0, %2, %4;\n\taddc.cc.u32 %1, %3, %5;"
+                 : "=r"(lo), "=r"(hi)
+                 : "r"((uint32_t)v), "r"((uint32_t)(v >> 32)),
+                   "r"((uint32_t)u), "r"((uint32_t)(u >> 32)));
+    asm volatile("addc.u32 %0, %1, %1;" : "=r"(cy) : "r"(0u));
+    v = (((uint64_t)hi << 32) | lo) | (v & ~u);
+    u = v & (u ^ (u << 1));
+    cin = __shfl_up_sync(0xFFFFFFFFu, cy, 1);
+  }
+  if (v == 42u) out[0] = (int)cin;
+}
+
+// cluster -1: lcs_step_kernel; 0: chase_kernel; 1: block_kernel;
+// 2..16: cluster_kernel with that many blocks of `threads`
 extern "C" int probe(int cluster, int threads, int steps, void* out,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* o = static_cast<int*>(out);
+  if (cluster == -1) {
+    lcs_step_kernel<<<1, 32, 0, st>>>(steps, o);
+    return (int)cudaGetLastError();
+  }
   if (cluster == 0) {
     chase_kernel<<<1, 32, 0, st>>>(steps, o);
     return (int)cudaGetLastError();
@@ -412,11 +445,11 @@ def phase_build(details: dict) -> tuple:
     return cubin, probe_lib
 
 
-def phase_probes(dev, lib_path: str, details: dict) -> float:
+def phase_probes(dev, lib_path: str, details: dict) -> tuple:
     """Times PROBE_SRC's kernels, PROBE_STEPS steps each, with CUDA
-    events: ns per dependent shared-memory byte load, and ns per block
-    barrier and per cluster barrier (2, 4, 8, 16 blocks) at 256 and 512
-    threads. Returns the first."""
+    events: ns per dependent shared-memory byte load, ns per dependent
+    X1 step, and ns per block barrier and per cluster barrier (2, 4, 8,
+    16 blocks) at 256 and 512 threads. Returns the first two."""
     import ctypes
 
     import torch
@@ -436,14 +469,16 @@ def phase_probes(dev, lib_path: str, details: dict) -> float:
         return ms * 1e6 / PROBE_STEPS
 
     step = ns(0, 32)
+    lcs_step = ns(-1, 32)
     bar = {f"{c}x{t}": ns(c, t) for t in (256, 512) for c in (1, 2, 4, 8, 16)}
-    print(f"probes: {step:.3f} ns per dependent shared-memory byte load; ns "
-          f"per barrier with a carry, blocks x threads (1 = block barrier, "
-          f"more = a cluster): " + ", ".join(f"{k} {v:.1f}"
-                                             for k, v in bar.items()))
+    print(f"probes: {step:.3f} ns per dependent shared-memory byte load; "
+          f"{lcs_step:.3f} ns per dependent X1 step (64-bit add with carry, "
+          f"shuffle); ns per barrier with a carry, blocks x threads (1 = "
+          f"block barrier, more = a cluster): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in bar.items()))
     details["probes"] = {"steps": PROBE_STEPS, "smem_step_ns": step,
-                         "barrier_ns": bar}
-    return step
+                         "lcs_step_ns": lcs_step, "barrier_ns": bar}
+    return step, lcs_step
 
 
 # SASS opcodes that are no integer work: memory, shuffles, barriers,
@@ -456,6 +491,62 @@ SASS_INS = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);")
 
 
+def sass_functions(path: str, kernel: str) -> list:
+    """[(mangled name, instructions)] of each instantiation of `kernel`
+    in `cuobjdump -sass` of the library or cubin at `path`; an
+    instruction is (address, opcode, operands, opcode with modifiers)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    out = []
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split(None, 1)[0]
+        if re.search(rf"{len(kernel)}{kernel}[IE]", name):
+            out.append((name, [(int(a, 16), op.split(".")[0], rest, op)
+                               for a, op, rest in SASS_INS.findall(fn)]))
+    return out
+
+
+def _back_target(a: int, op: str, rest: str):
+    """The target of a backward branch at address a, else None."""
+    tgt = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+    return int(tgt.group(1), 16) if tgt and int(tgt.group(1), 16) < a else None
+
+
+def backward_loops(ins: list) -> list:
+    """Every loop of one function's instructions: the run from a
+    backward branch's target to the branch."""
+    at = {a: i for i, (a, _op, _rest, _full) in enumerate(ins)}
+    loops = []
+    for i, (a, op, rest, _full) in enumerate(ins):
+        tgt = _back_target(a, op, rest)
+        if tgt is not None:
+            loops.append(ins[at[tgt]:i + 1])
+    return loops
+
+
+def x1_step_loops(path: str) -> dict:
+    """{K: integer instructions} of X1's lane-group step loops (two
+    wavefront steps an iteration, csrc/lcs.cu rows) with the masks in
+    shared memory and no strip carries: the innermost loops that hold a
+    shuffle, 2 K 64-bit shared loads and no global store; K from the
+    loads, the fewest instructions where layouts share a K."""
+    steps = {}
+    for _name, ins in sass_functions(path, "lcs_kernel"):
+        for seg in backward_loops(ins):
+            ops = [o for _a, o, _r, _f in seg]
+            loads = sum(f == "LDS.64" for _a, _o, _r, f in seg)
+            nested = any(_back_target(a, o, r) is not None
+                         for a, o, r, _f in seg[:-1])
+            if (nested or "SHFL" not in ops
+                    or "STG" in ops or not loads or loads % 2):
+                continue
+            alu = sum(not o.startswith(NON_ALU) for o in ops)
+            k = loads // 2
+            steps[k] = min(alu, steps.get(k, alu))
+    return steps
+
+
 def sass_loops(path: str, kernel: str, must: str | None = None,
                avoid: tuple = (), count: str | None = None) -> dict:
     """{template arguments (() for a kernel that is no template):
@@ -466,27 +557,15 @@ def sass_loops(path: str, kernel: str, must: str | None = None,
     `avoid`; with `count` (an opcode with its modifiers, such as LDS.U8)
     a third number, how many of those the loop holds. A static count:
     every instruction of the loop body counts once."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", path], capture_output=True,
-                          text=True, check=True).stdout
     loops = {}
-    for fn in sass.split("Function : ")[1:]:
-        name = fn.split(None, 1)[0]
-        if not re.search(rf"{len(kernel)}{kernel}[IE]", name):
-            continue
+    for name, ins in sass_functions(path, kernel):
         targs = tuple(int(x) for x in re.findall(r"Li(\d+)E", name))
-        ins = [(int(a, 16), op.split(".")[0], rest, op)
-               for a, op, rest in SASS_INS.findall(fn)]
-        at = {a: i for i, (a, _op, _rest, _full) in enumerate(ins)}
         body = []
-        for i, (a, op, rest, _full) in enumerate(ins):
-            tgt = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
-            if tgt and int(tgt.group(1), 16) < a:
-                seg = ins[at[int(tgt.group(1), 16)]:i + 1]
-                ops = {o for _a, o, _r, _f in seg}
-                if (len(seg) > len(body) and (must is None or must in ops)
-                        and not ops.intersection(avoid)):
-                    body = seg
+        for seg in backward_loops(ins):
+            ops = {o for _a, o, _r, _f in seg}
+            if (len(seg) > len(body) and (must is None or must in ops)
+                    and not ops.intersection(avoid)):
+                body = seg
         need(body, f"SASS: no main loop in {kernel}<{targs}>")
         loops[targs] = (len(body), sum(not o.startswith(NON_ALU)
                                        for _a, o, _rest, _f in body))
@@ -514,8 +593,8 @@ def kernel_sass(details, k3_count: str) -> dict:
     columns per lane between the warp-per-merge instantiations),
     K3 per cell and per thread and row (the interior path alone, from the
     build `k3_count` with K3_COUNT_INTERIOR; slope over 4 and 8 slots per
-    thread at 256 threads), and X1 per 64-bit word and row of a (its
-    word loop, over the 64-bit stores of V that it holds). Returns K3's
+    thread at 256 threads), and X1 per 64-bit word and row of a and per
+    step (its lane groups' step loops, x1_step_loops). Returns K3's
     interior row loops by (slots, threads): integer instructions."""
     from delly_tpu_torch.ops import _build
 
@@ -537,13 +616,12 @@ def kernel_sass(details, k3_count: str) -> dict:
     k3i = sass_loops(k3_count, "banded_kernel", "BAR")
     k3_cell = slope(k3i, (4, 256), (8, 256), lambda t: t[0])
     k3_row = k3i[(4, 256)][1] - 4 * k3_cell
-    # X1's word loop: the loop with global loads and no letter lookup
-    # (LDS: the row loop and the mask build) or popcount (the count of
-    # zero bits), one 64-bit store of V per word
-    x1 = sass_loops(_build._lib_path("lcs"), "lcs_kernel", "LDG",
-                    avoid=("LDS", "POPC"), count="STG.E.64")
-    need(x1[()][2] > 0, "SASS: X1's word loop without 64-bit stores")
-    x1_word = x1[()][1] / x1[()][2]
+    # X1's lane groups: two steps an iteration, K words a lane
+    x1 = x1_step_loops(_build._lib_path("lcs"))
+    need(4 in x1 and 8 in x1, f"SASS: X1's step loops at K = 4 and 8 "
+         f"not found ({x1})")
+    x1_word = (x1[8] - x1[4]) / (2 * 4)
+    x1_step = x1[4] / 2 - 4 * x1_word
     print(f"K1 SASS: {k1_word:g} integer instructions per Myers word in "
           f"the thread-per-pair column loop (W=1 to 2), {k1l_word:g} in the "
           f"lane groups' step loop (W=64 to 128); the bound counts "
@@ -565,8 +643,10 @@ def kernel_sass(details, k3_count: str) -> dict:
         f"counts {BANDED_OPS_PER_CELL} per cell. Both paths in the row loop:"
         + ", ".join(f" {c}x{t} {a}" for (c, t), (_n, a) in sorted(k3.items())))
     print(f"X1 SASS: {x1_word:g} integer instructions per 64-bit word and "
-          f"row of a ({x1[()][1]} in the word loop, {x1[()][2]} word(s) an "
-          f"iteration); the bound counts {LCS_OPS_PER_WORD}")
+          f"row of a and {x1_step:g} per step beside them (lane groups' step "
+          f"loop, two steps an iteration, slope over 4 to 8 words a lane: "
+          + ", ".join(f"K={k} {v}" for k, v in sorted(x1.items()))
+          + f"); the bound counts {LCS_OPS_PER_WORD}")
     details["sass"] = {
         "k1_column_loop": {str(k): v for k, v in k1.items()},
         "k1_step_loop": {str(k): v for k, v in k1l.items()},
@@ -581,7 +661,8 @@ def kernel_sass(details, k3_count: str) -> dict:
                                    for (c, t), v in k3.items()},
         "k3_row_loop_interior": {f"{c}x{t}": v for (c, t), v in k3i.items()},
         "k3_integer_per_cell": k3_cell, "k3_integer_per_thread_row": k3_row,
-        "x1_word_loop": x1[()], "x1_integer_per_word": x1_word}
+        "x1_step_loops": {str(k): v for k, v in x1.items()},
+        "x1_integer_per_word": x1_word, "x1_integer_per_step": x1_step}
     return {k: a for k, (_n, a) in k3i.items()}
 
 
@@ -1057,49 +1138,82 @@ def lcs_bound(a, al, b, bl) -> dict:
     return out
 
 
-def lcs_case(dev, args, nalpha, label, plain=False, recorded=None) -> dict:
+def lcs_steps(al, bl) -> int:
+    """The longest chain of wavefront steps a batch's pairs take in X1
+    (ops/lcs_cuda.py LAYOUTS): m + G K - 1 steps a strip, G the pair's
+    lanes and K their words, a strip per STRIP_WORDS words of b in the
+    last layout."""
+    from delly_tpu_torch.ops import lcs_cuda
+
+    if not len(al):
+        return 0
+    lay = lcs_cuda.layout_of(bl)
+    gk = np.array([np.prod(lcs_cuda.LAYOUTS[x]) for x in lay])
+    strips = np.maximum(1, -(-((bl.astype(np.int64) + 63) // 64)
+                             // lcs_cuda.STRIP_WORDS))
+    strips[lay != len(lcs_cuda.LAYOUTS) - 1] = 1
+    return int(((al > 0) * (al.astype(np.int64) + gk - 1) * strips).max())
+
+
+def lcs_case(dev, args, nalpha, label, plain=False, recorded=None,
+             host=None, step_ns=None) -> dict:
     """X1 on one batch of card tensors (a, alens, b, blens, lut) against
     lcs_plain on the card (exact; and the lengths a run `recorded` for
-    these inputs), timed through the wrapper (CUDA events, 20 calls
-    after a warm-up), with its bound and, if `plain`, the plain
-    version's time."""
+    these inputs), with the host's lengths `host` (a run's own call's,
+    or the tensors' copied here) and without them, timed with them
+    through the wrapper (CUDA events, 20 calls after a warm-up), with
+    its bound, its chain floor (lcs_steps x `step_ns`, the X1 step
+    probe) and, if `plain`, the plain version's time."""
     import torch
 
     from delly_tpu_torch.ops.lcs_cuda import lcs
     from delly_tpu_torch.ops.msa import lcs_plain
 
-    got = lcs(*args, nalpha)
+    a, al, b, bl = (x.cpu().numpy() for x in args[:4])
+    host = (al, bl) if host is None else host
     want = lcs_plain(*args[:4])
+    got = lcs(*args, nalpha, host_lengths=host)
+    bare = lcs(*args, nalpha)
     torch.cuda.synchronize()
     err = int((got.long() - want).abs().max()) if len(got) else 0
     need(torch.equal(got.long(), want), f"X1 != plain on {label} "
          f"(max {err})")
+    need(torch.equal(bare.long(), want), f"X1 without the host's lengths "
+         f"!= plain on {label}")
     need(recorded is None or torch.equal(recorded.long(), want),
          f"{label}: the run's X1 lengths != plain")
-    ms = cuda_ms(lambda: lcs(*args, nalpha), reps=20)
-    a, al, b, bl = (x.cpu().numpy() for x in args[:4])
+    ms = cuda_ms(lambda: lcs(*args, nalpha, host_lengths=host), reps=20)
+    steps = lcs_steps(al, bl)
     out = {"pairs": len(a), "m": a.shape[1], "n": b.shape[1],
            "nalpha": nalpha, "ms": ms, "max_abs_err": err,
+           "longest_steps": steps, "ns_per_step": ms * 1e6 / max(steps, 1),
            **lcs_bound(a, al, b, bl)}
+    if step_ns is not None:
+        out["chain_floor_ms"] = steps * step_ns * 1e-6
     if plain:
         out["plain_ms"] = timed(lambda: lcs_plain(*args[:4]))[1]
     print(f"X1 {label}: {len(a)} pairs {a.shape[1]}x{b.shape[1]}, "
-          f"{nalpha} letters: equal; {ms:.4f} ms through the wrapper; "
-          f"bound {out['bound_ms']:.5f} ms "
-          f"({out['bound_by']}, {out['word_steps']} word steps)"
+          f"{nalpha} letters: equal (with and without the host's lengths); "
+          f"{ms:.4f} ms through the wrapper, {steps} steps in the longest "
+          f"chain ({out['ns_per_step']:.1f} ns a step); bound "
+          f"{out['bound_ms']:.5f} ms ({out['bound_by']}, "
+          f"{out['word_steps']} word steps)"
+          + (f"; chain floor {out['chain_floor_ms']:.4f} ms"
+             if step_ns is not None else "")
           + (f"; plain {out['plain_ms']:.1f} ms" if plain else ""))
     return out
 
 
-def check_lcs(dev, details) -> dict:
+def check_lcs(dev, details, step_ns) -> dict:
     """X1 against lcs_plain on the card at the sr runs' shapes: deepgeno's
     split reads (~150 b), long-split's ~12 kb split reads beside short
-    ones in one padded batch; and at the edges: empty strings, lengths
-    63/64/65/127/128/129, N letters, b of 16,385 to 40,000 bases and
-    200 letters. Exact equality; each case timed."""
+    ones in one padded batch (96 pairs); and at the edges: empty
+    strings, lengths 63/64/65/127/128/129, N letters, b of 16,385 to
+    40,000 bases (strips), 200 letters (masks in global memory) and b at
+    each layout's edge. Exact equality; each case timed."""
     import torch
 
-    from delly_tpu_torch.ops.lcs_cuda import letter_lut
+    from delly_tpu_torch.ops.lcs_cuda import LAYOUTS, letter_lut
 
     rng = np.random.default_rng(SEED + 1)
     edges = (0, 1, 63, 64, 65, 127, 128, 129)
@@ -1114,29 +1228,32 @@ def check_lcs(dev, details) -> dict:
         ("b of 16-40 kb", [(400, 20_000), (400, 16_385), (300, 40_000),
                            (200, 100)] * 4, b"ACGT"),
         ("200 letters", [(300, 12_000)] * 6 + [(200, 190)] * 4,
-         bytes(range(20, 220)))]
+         bytes(range(20, 220))),
+        ("layout edges", [(100 + 3 * i, 64 * g * k + d) for i, (g, k) in
+                          enumerate(LAYOUTS) for d in (-1, 0, 1)], b"ACGT")]
     out = {}
     for label, lengths, letters in cases:
         a, al, b, bl = _lcs_batch(rng, lengths, letters)
         lut, nalpha = letter_lut(b, bl)
         args = [torch.from_numpy(x).to(dev) for x in (a, al, b, bl, lut)]
-        out[label] = lcs_case(dev, args, nalpha, label,
+        out[label] = lcs_case(dev, args, nalpha, label, step_ns=step_ns,
                               plain=label.startswith(("deepgeno", "long")))
     details["x1_cases"] = out
     return out
 
 
-def check_recorded_lcs(dev, records, details) -> dict:
+def check_recorded_lcs(dev, records, details, step_ns) -> dict:
     """Holds every X1 call recorded in the sr runs ({run: recorder
-    list}) equal to lcs_plain on the card, and times each through the
-    wrapper, long-split's and deepgeno's beside the plain version."""
+    list}) equal to lcs_plain on the card, with the call's own host
+    lengths and without, and times each through the wrapper, long-split's
+    and deepgeno's beside the plain version."""
     out = {}
     for label, record in records.items():
-        for args, _kw, got in record:
+        for args, kw, got in record:
             out.setdefault(label, []).append(lcs_case(
                 dev, list(args[:5]), args[5], f"{label}, recorded",
                 plain=label in ("sr long-split", "sr deepgeno"),
-                recorded=got))
+                recorded=got, host=kw.get("host_lengths"), step_ns=step_ns))
     details["x1_recorded"] = out
     return out
 
@@ -2192,25 +2309,30 @@ def phase_hostaxis(work, details, cmds) -> None:
     os.makedirs(outdir)
     with open(p("world2.json"), "w") as fh:
         json.dump(steps, fh)
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
+    # the port stays reserved (bound with SO_REUSEADDR, not listening)
+    # until the world ends, so that no other socket is given it before
+    # process 0's TCPStore, which also sets SO_REUSEADDR, listens on it
+    sock = socket.socket()
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
     t0 = time.time()
     procs = []
-    for pid in range(2):
-        with open(p(f"world2.{pid}.err"), "w") as err:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m",
-                 "delly_tpu_torch.testing.hostaxis_worker", str(pid), "2",
-                 str(port), outdir, p("world2.json")], cwd=REPO,
-                stdout=subprocess.DEVNULL, stderr=err))
     try:
+        for pid in range(2):
+            with open(p(f"world2.{pid}.err"), "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m",
+                     "delly_tpu_torch.testing.hostaxis_worker", str(pid),
+                     "2", str(port), outdir, p("world2.json")], cwd=REPO,
+                    stdout=subprocess.DEVNULL, stderr=err))
         rcs = [q.wait(timeout=600) for q in procs]
     finally:
         for q in procs:
             if q.poll() is None:
                 q.kill()
                 q.wait()
+        sock.close()
     wall = time.time() - t0
     for pid, rc in enumerate(rcs):
         with open(p(f"world2.{pid}.err")) as fh:
@@ -2408,14 +2530,14 @@ def main() -> int:
     try:
         k3_count, probe_lib = phase_build(details)
         sass_loops = kernel_sass(details, k3_count)
-        step_ns = phase_probes(dev, probe_lib, details)
+        step_ns, lcs_step_ns = phase_probes(dev, probe_lib, details)
         pool, gen = start_datasets(work)
         rng = np.random.default_rng(SEED)
         k1 = check_myers(dev, rng, details)
         k2, tb = check_gotoh(dev, rng, details, step_ns)
-        check_lcs(dev, details)
+        check_lcs(dev, details, lcs_step_ns)
         launches, k3_launches, cmds, lcs_records = phase_e2e(work, details)
-        x1 = check_recorded_lcs(dev, lcs_records, details)
+        x1 = check_recorded_lcs(dev, lcs_records, details, lcs_step_ns)
         cram_pool, cram_futs = start_cram_writes(work, cmds)
         phase_host_dp(work, details)
         lr_launches, lr_cmds, k1_lr = phase_lr(dev, work, details, gen["lr"])
@@ -2454,15 +2576,25 @@ def main() -> int:
         return sum(run[name] for run in launches.values())
 
     ls, dg = x1["sr long-split"][0], x1["sr deepgeno"][0]
+    mix = details["x1_cases"]["long-split mix"]
+    print(f"X1: the seeded 96-pair mix {mix['ms']:.4f} ms, "
+          f"{mix['ms'] / ls['ms']:.3f} x long-split's {ls['pairs']}-pair "
+          f"batch ({ls['ms']:.4f} ms; chain floor {ls['chain_floor_ms']:.4f}"
+          f" ms, {ls['longest_steps']} steps)")
     x1_meas = {**ls, "shapes": f"{ls['pairs']} pairs, {ls['m']}x{ls['n']} "
                f"uint8, long-split's batch", "deepgeno_shapes":
                f"{dg['pairs']} pairs, {dg['m']}x{dg['n']} uint8",
                **{f"deepgeno_{k}": dg[k] for k in ("ms", "plain_ms",
-                                                   "bound_ms", "bound_by")},
+                                                   "bound_ms", "bound_by",
+                                                   "chain_floor_ms")},
+               "lcs_step_ns": lcs_step_ns,
+               "case_mix_over_long_split": mix["ms"] / ls["ms"],
                "case_ms": {k: v["ms"] for k, v in
                            details["x1_cases"].items()},
                "case_bound_ms": {k: v["bound_ms"] for k, v in
-                                 details["x1_cases"].items()}}
+                                 details["x1_cases"].items()},
+               "case_chain_floor_ms": {k: v["chain_floor_ms"] for k, v in
+                                       details["x1_cases"].items()}}
     kernels = []
     for name, src, rep, meas in (
             ("myers", "delly_tpu_torch/csrc/myers.cu",
@@ -2491,7 +2623,7 @@ def main() -> int:
             **{k: v for k, v in meas.items() if k.startswith(
                 ("row_loop", "launch_ms", "longest", "smem_step",
                  "chain_floor", "case_", "device_ms", "lr_", "asm_",
-                 "deepgeno_", "word_steps"))}})
+                 "deepgeno_", "word_steps", "lcs_step", "ns_per_step"))}})
     details["kernels"] = kernels
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:

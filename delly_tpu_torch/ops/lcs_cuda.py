@@ -3,19 +3,22 @@
 Replaces ``delly_tpu/ops/msa.py::_lcs_device_fn`` (:39-66, XLA: a scan
 over the rows of a with an in-row prefix max). The kernel is
 csrc/lcs.cu: the bit-parallel recurrence of the host's ``lcs_many``
-(native/hostio.cpp), one thread per pair, b's bit vector V and its
-match masks in scratch buffers that this wrapper allocates. On the H100
-its floor is set by integer operations (about seven 32-bit ones per
-64-bit word and row of a); the bytes of the pairs weigh far less.
+(native/hostio.cpp), b's bit vector V in registers, a pair on one
+thread (b of up to 256 bases) or on a group of lanes (LAYOUTS), its
+words running the rows of a as a wavefront, its match masks built by
+the kernel in shared memory. On the H100 its floor is set by integer
+operations (about seven 32-bit ones per 64-bit word and row of a); the
+bytes of the pairs weigh far less.
 
 ``lcs`` takes tensors: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs the plain version
 (ops/msa.py::lcs_plain). ``letter_lut`` codes the letters that occur in
-b for it.
+b for it; ``schedule`` orders a batch by layout.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 
 import numpy as np
@@ -26,6 +29,14 @@ from delly_tpu_torch.ops.msa import lcs_plain
 from delly_tpu_torch.parallel import dispatch
 
 ABSENT = 255             # letter code of a byte that b lacks
+# (lanes per pair, 64-bit words of V per lane), as csrc/lcs.cu kG and kK;
+# a pair takes the first layout that holds ceil(n / 64) words, and b
+# longer than the last holds runs in strips of STRIP_WORDS words
+LAYOUTS = ((1, 1), (1, 2), (1, 3), (1, 4), (2, 4), (4, 4), (8, 4), (16, 4),
+           (32, 4), (32, 6), (32, 8))
+STRIP_WORDS = 32 * 8
+SMEM_MASKS = 64 * 1024   # mask bytes a warp keeps in shared memory
+_CAPACITY = tuple(g * k for g, k in LAYOUTS)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -34,7 +45,7 @@ def _lib():
     lib = _build.load("lcs")
     if lib.lcs_launch.argtypes is None:
         lib.lcs_launch.argtypes = [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P,
-                                   _P, _P, _P]
+                                   _P, _I, _P, _P, _P, _P]
         lib.lcs_launch.restype = _I
     return lib
 
@@ -49,6 +60,43 @@ def letter_lut(b: np.ndarray, blens: np.ndarray) -> tuple:
     lut = np.full(256, ABSENT, dtype=np.uint8)
     lut[letters] = np.arange(len(letters))
     return lut, len(letters)
+
+
+def layout_of(blens) -> np.ndarray:
+    """Index into LAYOUTS of each b length: the first layout whose
+    G x K words hold ceil(n / 64), the last (strips) beyond."""
+    words = (np.asarray(blens, dtype=np.int64) + 63) // 64
+    return np.minimum(np.searchsorted(_CAPACITY, words), len(LAYOUTS) - 1)
+
+
+def _layout(n: int) -> int:
+    """layout_of for one b length, without numpy's cost per call (the
+    wrapper's host time is the launch's time at deepgeno's shape)."""
+    words = (n + 63) // 64
+    return min(bisect.bisect_left(_CAPACITY, words), len(LAYOUTS) - 1)
+
+
+def _segments(lay: np.ndarray) -> list:
+    """(layout, first slot, pairs) of each run of one layout."""
+    firsts = np.flatnonzero(lay[1:] != lay[:-1]) + 1
+    ends = list(firsts) + [len(lay)]
+    return [(int(lay[f]), int(f), int(e - f))
+            for f, e in zip([0] + list(firsts), ends)]
+
+
+def schedule(alens, blens) -> tuple:
+    """(order, segments) of a batch: `order` sorts the pairs by layout,
+    the widest first, then by the length of a, the longest first (so a
+    warp's pairs have close lengths and the longest chains start
+    first); `segments` lists (layout, first slot, pairs) in that order."""
+    lay = layout_of(blens)
+    order = np.lexsort((-np.asarray(alens, dtype=np.int64), -lay))
+    return order, _segments(lay[order]) if len(order) else []
+
+
+def warps_of(segs) -> int:
+    """Warps (blocks) a launch of these segments takes."""
+    return sum(-(-count // (32 // LAYOUTS[lay][0])) for lay, _f, count in segs)
 
 
 def _check(a, alens, b, blens, lut):
@@ -72,16 +120,43 @@ def _check(a, alens, b, blens, lut):
             raise ValueError(f"lcs: {name} must be contiguous")
 
 
+def _lengths(a, alens, b, blens, host_lengths):
+    """(alens, blens, (min, max) of blens) as numpy arrays: the caller's
+    `host_lengths` in place of the card's (nothing is read back from the
+    card), the tensors themselves on the host; None for card tensors
+    without host lengths. Raises on shapes other than the tensors' and
+    on b lengths outside [0, N] (the kernel and the plain version clamp
+    a's lengths alike)."""
+    if host_lengths is not None:
+        al, bl = (np.asarray(x) for x in host_lengths)
+        if al.shape != tuple(alens.shape) or bl.shape != tuple(blens.shape):
+            raise ValueError(f"lcs: host_lengths have shapes {al.shape} and "
+                             f"{bl.shape}, expected {tuple(alens.shape)}")
+    elif a.device.type == "cpu":
+        al, bl = alens.numpy(), blens.numpy()
+    else:
+        return None
+    span = (int(bl.min()), int(bl.max())) if len(bl) else (0, 0)
+    if span[0] < 0 or span[1] > b.shape[1]:
+        raise ValueError(f"lcs: b lengths must lie in [0, {b.shape[1]}]")
+    return al, bl, span
+
+
 def lcs(a: torch.Tensor, alens: torch.Tensor, b: torch.Tensor,
-        blens: torch.Tensor, lut: torch.Tensor, nalpha: int) -> torch.Tensor:
+        blens: torch.Tensor, lut: torch.Tensor, nalpha: int,
+        host_lengths=None) -> torch.Tensor:
     """(B,) int32 LCS lengths of a[i, :alens[i]] and b[i, :blens[i]], a
     (B, M) and b (B, N) uint8. The kernel codes b's letters through
     `lut` (letter_lut), whose codes of b's bytes must lie below `nalpha`
-    (the CPU path checks it; the card's would cost a copy to the
-    host)."""
+    (the CPU path checks it; the card's would cost a copy to the host).
+    `host_lengths`: the numpy alens and blens that the caller uploaded;
+    with them the card's launch groups the pairs by layout and length
+    (schedule; a batch already in that order needs no permutation on the
+    card), without them every pair takes the layout of b's width N."""
     _check(a, alens, b, blens, lut)
     if not 0 <= nalpha <= 256:
         raise ValueError(f"lcs: nalpha {nalpha}")
+    lengths = _lengths(a, alens, b, blens, host_lengths)
     if a.device.type == "cpu":
         n = b.shape[1]
         valid = torch.arange(n)[None, :] < blens.to(torch.int64)[:, None]
@@ -91,6 +166,11 @@ def lcs(a: torch.Tensor, alens: torch.Tensor, b: torch.Tensor,
         return lcs_plain(a, alens, b, blens).to(torch.int32)
     if a.device.type != "cuda":
         raise ValueError(f"lcs: unsupported device {a.device}")
+    return _launch(a, alens, b, blens, lut, nalpha, lengths)
+
+
+def _launch(a, alens, b, blens, lut, nalpha, lengths):
+    """One launch of X1 on the tensors' device (checked by lcs)."""
     nb, m = a.shape
     n = b.shape[1]
     out = torch.empty(nb, dtype=torch.int32, device=a.device)
@@ -98,15 +178,38 @@ def lcs(a: torch.Tensor, alens: torch.Tensor, b: torch.Tensor,
         return out
     if m == 0 or n == 0:
         return out.zero_()
-    # V and the match masks, word j of a pair at [j][pair]
-    words = -(-n // 64)
-    v = torch.empty(words * nb, dtype=torch.int64, device=a.device)
-    masks = torch.zeros(nalpha * words * nb, dtype=torch.int64,
-                        device=a.device)
-    rc = _lib().lcs_launch(a.data_ptr(), m, alens.data_ptr(), b.data_ptr(),
-                           n, blens.data_ptr(), lut.data_ptr(), nalpha, nb,
-                           v.data_ptr(), masks.data_ptr() if nalpha else None,
-                           out.data_ptr(), _build.stream_ptr(a.device))
+    order = None
+    if lengths is None:
+        segs = [(_layout(n), 0, nb)]
+    else:
+        al, bl, span = lengths
+        lo, hi = (_layout(x) for x in span)
+        lay = layout_of(bl) if lo != hi else None
+        if lay is None or (lay[1:] <= lay[:-1]).all():
+            # one layout, or grouped by layout: launch in the given order
+            segs = [(lo, 0, nb)] if lay is None else _segments(lay)
+        else:
+            perm, segs = schedule(al, bl)
+            order = torch.from_numpy(perm.astype(np.int32)).to(a.device)
+    warps = warps_of(segs)
+    kmax = max(LAYOUTS[lay][1] for lay, _f, _c in segs)
+    gmasks = None
+    if (nalpha + 1) * kmax * 32 * 8 > SMEM_MASKS:
+        gmasks = torch.empty(warps * (nalpha + 1) * kmax * 32,
+                             dtype=torch.int64, device=a.device)
+    carry = None
+    if n > STRIP_WORDS * 64 and any(lay == len(LAYOUTS) - 1
+                                    for lay, _f, _c in segs):
+        carry = torch.empty(warps * 2 * (-(-m // 32)), dtype=torch.int32,
+                            device=a.device)
+    flat = (ctypes.c_int * (3 * len(segs)))(*(v for s in segs for v in s))
+    rc = _lib().lcs_launch(
+        a.data_ptr(), m, alens.data_ptr(), b.data_ptr(), n, blens.data_ptr(),
+        lut.data_ptr(), nalpha, nb,
+        None if order is None else order.data_ptr(), flat, len(segs),
+        None if gmasks is None else gmasks.data_ptr(),
+        None if carry is None else carry.data_ptr(), out.data_ptr(),
+        _build.stream_ptr(a.device))
     _build.check(rc, "lcs")
     dispatch.count("lcs")
     return out

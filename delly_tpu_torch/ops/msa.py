@@ -41,34 +41,38 @@ def lcs_pairs(pairs: list) -> np.ndarray:
     """Batched LCS lengths for (a, b) string pairs: one padded batch on
     the run's device (utils.torchenv.device()), with no size gate, in
     one call of ops/lcs_cuda.lcs (on the card one launch of X1,
-    csrc/lcs.cu). Not split over a mesh,
-    as the JAX package's is not. Used for the MSA similarity matrix
-    (reference HOT LOOP 3 feeder, msa.h:10-44)."""
+    csrc/lcs.cu). The batch is packed in the kernel's order
+    (lcs_cuda.schedule) and the lengths go back in the pairs' order. Not
+    split over a mesh, as the JAX package's is not. Used for the MSA
+    similarity matrix (reference HOT LOOP 3 feeder, msa.h:10-44)."""
     if not pairs:
         return np.zeros(0, dtype=np.int64)
     import torch
 
-    from delly_tpu_torch.ops.lcs_cuda import lcs, letter_lut
+    from delly_tpu_torch.ops.lcs_cuda import lcs, letter_lut, schedule
     from delly_tpu_torch.utils import torchenv
-    m = max(1, max(len(a) for a, _ in pairs))
-    n = max(1, max(len(b) for _, b in pairs))
+    xs = [x.encode() for x, _ in pairs]
+    ys = [y.encode() for _, y in pairs]
+    order, _ = schedule([len(x) for x in xs], [len(y) for y in ys])
     nb = len(pairs)
+    m = max(1, max(len(x) for x in xs))
+    n = max(1, max(len(y) for y in ys))
     a = np.zeros((nb, m), dtype=np.uint8)
     b = np.zeros((nb, n), dtype=np.uint8)
     al = np.zeros(nb, dtype=np.int32)
     bl = np.zeros(nb, dtype=np.int32)
-    for i, (x, y) in enumerate(pairs):
-        xb = x.encode()
-        yb = y.encode()
-        a[i, :len(xb)] = np.frombuffer(xb, dtype=np.uint8)
-        b[i, :len(yb)] = np.frombuffer(yb, dtype=np.uint8)
-        al[i] = len(xb)
-        bl[i] = len(yb)
+    for i, k in enumerate(order):
+        a[i, :len(xs[k])] = np.frombuffer(xs[k], dtype=np.uint8)
+        b[i, :len(ys[k])] = np.frombuffer(ys[k], dtype=np.uint8)
+        al[i] = len(xs[k])
+        bl[i] = len(ys[k])
     lut, nalpha = letter_lut(b, bl)
     dev = torchenv.device()
-    out = lcs(*(torch.from_numpy(x).to(dev) for x in (a, al, b, bl, lut)),
-              nalpha)
-    return out.cpu().numpy().astype(np.int64)
+    got = lcs(*(torch.from_numpy(x).to(dev) for x in (a, al, b, bl, lut)),
+              nalpha, host_lengths=(al, bl))
+    out = np.empty(nb, dtype=np.int64)
+    out[order] = got.cpu().numpy()
+    return out
 
 
 def distance_matrix(seqs: list) -> np.ndarray:

@@ -572,6 +572,20 @@ LCS_CASES = {
     # 200 letters, each with its match masks
     "many letters": ([(300, 12_000)] * 6 + [(200, 190)] * 4,
                      bytes(range(20, 220))),
+    # long-split's 96-pair mix: without the schedule a warp would hold
+    # ~12 kb pairs beside ~150 b ones
+    "long-split 96 mix": ([(11_800 + 13 * i, 12_300 - 11 * i)
+                           for i in range(48)]
+                          + [(150 - i % 9, 140 + i % 13) for i in range(48)],
+                          b"ACGTN"),
+    # b at each layout's edge: G x K x 64 bases and one more or less
+    "layout edges": ([(90 + w % 50, 64 * w + d) for w in
+                      (1, 2, 3, 4, 8, 16, 32, 64, 128, 192, 256)
+                      for d in (-1, 0, 1)], b"ACGT"),
+    # 200 letters at 12 kb in a batch of one layout: the masks of a warp
+    # (200 x 6 words x 32 lanes) past shared memory
+    "200 letters at 12 kb": ([(400, 12_000 - 7 * i) for i in range(8)],
+                             bytes(range(20, 220))),
 }
 
 
@@ -592,6 +606,31 @@ def test_lcs_kernel_matches_plain(card, case):
     assert dispatch.snapshot()["lcs"] == 1
     assert got.dtype == torch.int32
     assert torch.equal(got.long().cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LCS_CASES))
+def test_lcs_kernel_scheduled_matches_plain(card, case):
+    """X1 with the host's lengths, so the launch groups the pairs by
+    layout and length (lcs_cuda.schedule) and writes the lengths back in
+    the caller's order; the batch once as given (the order uploaded) and
+    once sorted (none), each equal to lcs_plain and one launch."""
+    from delly_tpu_torch.ops.lcs_cuda import schedule
+
+    lengths, letters = LCS_CASES[case]
+    a, al, b, bl = _lcs_batch(len(case) + 7, lengths, letters)
+    order, _segs = schedule(al, bl)
+    lut, nalpha = letter_lut(b, bl)
+    for perm in (np.arange(len(al)), order):
+        host = [x[perm] for x in (a, al, b, bl)]
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(card)
+                for x in (*host, lut)]
+        want = lcs_plain(*args[:4])
+        dispatch.reset()
+        got = lcs(*args, nalpha, host_lengths=(host[1], host[3]))
+        torch.cuda.synchronize()
+        assert dispatch.snapshot()["lcs"] == 1
+        assert torch.equal(got.long().cpu(), want.cpu())
 
 
 @pytest.mark.cuda

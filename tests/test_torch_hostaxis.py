@@ -36,18 +36,27 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 240
 
 
-def _free_port() -> int:
+def _reserve_port() -> socket.socket:
+    """A localhost port, held by a socket that is bound (SO_REUSEADDR)
+    and not listening. Released as soon as it is picked, the port could
+    go to another process's bind to port 0 or outgoing connection (the
+    other worlds' gloo pairs, the tests beside this file) in the seconds
+    before the world's process 0 listens on it; held, no other socket is
+    given it, while the world's TCPStore, which also sets SO_REUSEADDR,
+    can still bind and listen on it."""
     s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
     s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    return s
 
 
-def start_world(case: str, outdir: str, nproc: int) -> list:
-    """Starts an nproc-process world of the port's worker."""
+def start_world(case: str, outdir: str, nproc: int, held: list) -> list:
+    """Starts an nproc-process world of the port's worker on a port that
+    stays reserved (its socket appended to `held`) until the caller
+    closes it."""
     os.makedirs(outdir, exist_ok=True)
-    port = _free_port()
+    held.append(_reserve_port())
+    port = held[-1].getsockname()[1]
     env = dict(os.environ, DELLY_TPU_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
     for var in ("DELLY_TPU_DIST", "DELLY_TPU_MESH", "DELLY_TPU_PROFILE"):
         env.pop(var, None)
@@ -113,11 +122,12 @@ def worlds(tmp_path_factory):
             json.dump(st, fh)
     jaxdir = d / "jax"
     os.makedirs(jaxdir)
+    held = []
     started = {
-        "primitives": start_world("primitives", str(d / "prim"), 2),
-        "two": start_world(paths["steps"], str(d / "two"), 2),
-        "one": start_world(paths["steps"], str(d / "one"), 1),
-        "three": start_world(paths["sr"], str(d / "three"), 3),
+        "primitives": start_world("primitives", str(d / "prim"), 2, held),
+        "two": start_world(paths["steps"], str(d / "two"), 2, held),
+        "one": start_world(paths["steps"], str(d / "one"), 1, held),
+        "three": start_world(paths["sr"], str(d / "three"), 3, held),
     }
     res = {}
     try:
@@ -132,6 +142,8 @@ def worlds(tmp_path_factory):
                 if q.poll() is None:
                     q.kill()
                     q.wait()
+        for sock in held:
+            sock.close()
     return d, res
 
 

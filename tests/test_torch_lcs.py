@@ -12,6 +12,9 @@ kernel itself (csrc/lcs.cu) runs only on the card:
 tests/test_torch_cuda.py holds it to lcs_plain there.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -67,6 +70,13 @@ CASES = {
                                       for i in range(40)],
     "long a, short b, and the reverse": [(3000, 64), (64, 3000), (3000, 1),
                                          (1, 3000), (2500, 129)],
+    # the kernel's layouts (lcs_cuda.LAYOUTS) at their edges: one thread
+    # per pair for b of 64 K and 64 K + 1 bases, K = 1 ... 4 words, and
+    # lane groups for b of G x K x 64 bases and one more or less
+    "thread-layout edges": [(40 + 7 * k, 64 * k + d) for k in (1, 2, 3, 4)
+                            for d in (0, 1)],
+    "lane-group edges": [(30 + w % 23, 64 * w + d) for w in (8, 16, 32, 64)
+                         for d in (-1, 1)],
 }
 LETTERS = {"N letters": "ACGTN", "homopolymers": "A",
            "60 letters": "".join(chr(c) for c in range(40, 100))}
@@ -189,3 +199,100 @@ def test_lcs_checks_its_inputs():
     with pytest.raises(ValueError):
         lcs_cuda.lcs(a, ln, b, ln, lut, 0)
     assert lcs_cuda.lcs(a, ln, b, ln, lut, 1).tolist() == [5, 5]
+
+
+def test_layouts_match_kernel_source():
+    """The wrapper's layout table, strip width and shared-memory budget
+    are the kernel's (csrc/lcs.cu kG, kK, kStripWords, kSmemMasks)."""
+    src = open(os.path.join(os.path.dirname(lcs_cuda.__file__), "..", "csrc",
+                            "lcs.cu")).read()
+
+    def table(name):
+        body = re.search(rf"{name}\[kLayouts\] = {{([^}}]*)}}", src).group(1)
+        return [int(v) for v in body.split(",")]
+
+    assert list(zip(table("kG"), table("kK"))) == list(lcs_cuda.LAYOUTS)
+    assert int(re.search(r"kLayouts = (\d+);", src).group(1)) == len(
+        lcs_cuda.LAYOUTS)
+    assert re.search(r"kStripWords = 32 \* 8;", src)
+    assert lcs_cuda.STRIP_WORDS == 32 * 8
+    assert re.search(r"kSmemMasks = 64 \* 1024;", src)
+    assert lcs_cuda.SMEM_MASKS == 64 * 1024
+
+
+SCHEDULES = {
+    # long-split's 96-pair mix: ~12 kb pairs beside ~150 b ones
+    "long-split mix": ([11_800 + 13 * i for i in range(48)]
+                       + [150 - i % 9 for i in range(48)],
+                       [12_300 - 11 * i for i in range(48)]
+                       + [140 + i % 13 for i in range(48)]),
+    "every layout and empty": ([5 * i % 97 for i in range(300)],
+                               [(i * 131) % 20_000 for i in range(300)]),
+    "one layout": ([100 - i % 17 for i in range(1000)],
+                   [100 - i % 13 for i in range(1000)]),
+    "no pairs": ([], []),
+}
+
+
+@pytest.mark.parametrize("case", list(SCHEDULES))
+def test_schedule_groups_pairs_by_layout(case):
+    """Each pair gets one slot and one layout that holds its b; the
+    segments cover the slots in order, one layout each, widest first;
+    within a segment a's lengths fall, so no warp mixes a long pair with
+    short ones; and the order, undone, gives back the caller's pairs."""
+    al = np.array(SCHEDULES[case][0], dtype=np.int32)
+    bl = np.array(SCHEDULES[case][1], dtype=np.int32)
+    order, segs = lcs_cuda.schedule(al, bl)
+    assert sorted(order.tolist()) == list(range(len(al)))
+    restored = np.empty_like(order)
+    restored[order] = np.arange(len(al))
+    assert (order[restored] == np.arange(len(al))).all()
+    lay = lcs_cuda.layout_of(bl)
+    slot = 0
+    for k, (layout, first, count) in enumerate(segs):
+        assert first == slot and count >= 1
+        assert k == 0 or layout < segs[k - 1][0]
+        pairs = order[first:first + count]
+        assert (lay[pairs] == layout).all()
+        g, kw = lcs_cuda.LAYOUTS[layout]
+        words = (bl[pairs] + 63) // 64
+        assert (words <= g * kw).all() or layout == len(lcs_cuda.LAYOUTS) - 1
+        assert layout == 0 or (words > np.prod(
+            lcs_cuda.LAYOUTS[layout - 1])).all()
+        assert (np.diff(al[pairs]) <= 0).all()
+        for w in range(0, count, 32 // g):   # one warp's pairs
+            held = bl[pairs[w:w + 32 // g]]
+            assert held.max() < 4 * max(held.min(), 64)
+        slot += count
+    assert slot == len(al)
+    assert lcs_cuda.warps_of(segs) == sum(
+        -(-c // (32 // lcs_cuda.LAYOUTS[lay_][0])) for lay_, _f, c in segs)
+    if case == "long-split mix":
+        # 32 lanes of 8 and of 6 words a pair; 3-word threads, 32 a warp
+        assert [s_[:3:2] for s_ in segs] == [(10, 2), (9, 46), (2, 48)]
+        assert lcs_cuda.warps_of(segs) == 48 + 2
+
+
+def test_host_lengths_checked_in_place():
+    """host_lengths stand in for the tensors' lengths: their shapes must
+    be the tensors', b's must lie in [0, N]; the CPU path then runs as
+    without them. A wrong length is found without the tensors' values."""
+    pairs = _case_pairs("N letters", 3)
+    a, al, b, bl = _pack(pairs)
+    lut, nalpha = lcs_cuda.letter_lut(b, bl)
+    t = [torch.from_numpy(x) for x in (a, al, b, bl, lut)]
+    want = lcs_cuda.lcs(*t, nalpha)
+    got = lcs_cuda.lcs(*t, nalpha, host_lengths=(al, bl))
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="host_lengths"):
+        lcs_cuda.lcs(*t, nalpha, host_lengths=(al[:-1], bl))
+    with pytest.raises(ValueError, match="host_lengths"):
+        lcs_cuda.lcs(*t, nalpha, host_lengths=(al, bl[:, None]))
+    over = bl.copy()
+    over[2] = b.shape[1] + 1
+    with pytest.raises(ValueError, match="b lengths"):
+        lcs_cuda.lcs(*t, nalpha, host_lengths=(al, over))
+    # the check reads the host arrays, not the tensors
+    lengths = lcs_cuda._lengths(t[0], t[1], t[2], t[3], (al, bl))
+    assert lengths[0] is al and lengths[1] is bl
+    assert lengths[2] == (int(bl.min()), int(bl.max()))
