@@ -5,8 +5,10 @@
 1. Prints the card (nvidia-smi name and power limit) and builds the
    kernels K1 (csrc/myers.cu), K2 (csrc/gotoh.cu), K2-tb
    (csrc/gotoh_tb.cu), K3 (csrc/gotoh_banded.cu), K3-tb
-   (csrc/gotoh_banded_tb.cu) and X1 (csrc/lcs.cu, the MSA's batched
-   LCS) with nvcc for sm_90a, one process per
+   (csrc/gotoh_banded_tb.cu), X1 (csrc/lcs.cu, the MSA's batched
+   LCS), K4 (csrc/gotoh_wide.cu, profile merges wider than 4,096
+   columns) and K4-tb (csrc/gotoh_wide_tb.cu) with nvcc for sm_90a, one
+   process per
    source, all started together, printing the build seconds and the
    -Xptxas -v register/spill lines; beside them K3 once more with
    K3_COUNT_INTERIOR into a cubin, and the probes of PROBE_SRC below.
@@ -53,10 +55,15 @@
    call launched X1 once; every X1 call of these runs is held against
    lcs_plain on the card and timed (long-split's batch gives the
    kernels line's X1 numbers, and the seeded 96-pair mix's time is
-   printed over it). Then runs `sr` on the card
-   on long split reads with 4 reads per DEL (2 DELs), where the profile
-   merges wider than 4,096 columns take the host full DP, and prints the
-   share of split-read assembly spent there.
+   printed over it). Then the wide merges: `sr` on the card on long
+   split reads with 4 reads per DEL, on one 1 Mb contig with 2 DELs and
+   at LONG_SPLIT's full size (24 DELs, generated by a third worker
+   process from the start), where the MSA merges profiles wider than
+   K2's 4,096 columns on K4/K4-tb: truth 2/2 and 24/24, 0 host routes,
+   K4 and K4-tb launched, at 24 DELs more K4 launches than
+   gotoh_wide_batch calls (tiles cut under TILE_BUDGET), every launch
+   recorded; prints the seconds of split-read assembly in the wide
+   batches, the corridor batches and the LCS.
 4. Generates the lr datasets with the port's copy of the generators (in
    a worker process, started after the probes, beside phases 2 and 3)
    and runs `lr` on the card on each: the five families of
@@ -114,9 +121,10 @@
    its traced wall beside the untraced one; its trace must hold one
    kernel record for every launch of the port's kernels it counted
    (X1's among them).
-7. Starts the same sr and lr commands (not the bench-size deep-lr ones)
-   with DELLY_TPU_TORCH_DEVICE=cpu (together, one torch thread each,
-   with their stage profiles), and each workflow of phase 5 in one
+7. Starts the same sr and lr commands (not the bench-size deep-lr ones,
+   nor the 24-DEL wide run) with DELLY_TPU_TORCH_DEVICE=cpu (together,
+   one torch thread each, with their stage profiles), and each workflow
+   of phase 5 in one
    process that runs its steps one after the other (each step reading
    the card's outputs of the steps before), in the
    background, and meanwhile holds K3/K3-tb against their plain versions
@@ -128,13 +136,20 @@
    versions and times the run's corridor jobs as a whole (its launches
    at once, on their own streams), and each launch alone: the kernels
    line's K3 and K3-tb numbers, with K3-tb's chain floor (the longest
-   walk's steps x the chase probe's step). The plain versions' times of
+   walk's steps x the chase probe's step). Then every K4/K4-tb launch
+   of the wide runs again from its recorded inputs (equal to what the
+   run got), each timed through the wrappers, and the merges of both
+   runs at once through the plain versions on the card (exact): the
+   kernels line's K4 and K4-tb numbers from the 24-DEL run, with the
+   bounds per merge on one SM and on the card and K4-tb's chain floor.
+   The plain versions' times of
    this phase are taken with the CPU runs going. Last, checks that every
    card output equals its CPU run's apart from ##fileDate (BCF decoded,
    gzip files decompressed).
 8. Prints the kernels line (K1's entry with its lr and asm launches,
    pairs by shape and largest launch; X1's at long-split's batch, with
-   deepgeno's beside it), then as the last line
+   deepgeno's beside it; K4's and K4-tb's at the 24-DEL wide run's
+   launches), then as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}},
    N the visible cards (torch.cuda.device_count()).
 
@@ -1291,12 +1306,16 @@ def timer(acc: dict):
 def msa_timers() -> tuple:
     """(acc, wraps) that time, in one run, the host full DP (merges the
     kernels do not serve), the corridor batches (K3/K3-tb with the host
-    packing around them) and the batched LCS of the MSA."""
-    from delly_tpu_torch.ops import gotoh_cuda, msa
+    packing around them), the wide batches (K4/K4-tb with theirs) and
+    the batched LCS of the MSA."""
+    from delly_tpu_torch.ops import gotoh_cuda, gotoh_wide_cuda, msa
 
     acc = {k: {"s": 0.0, "calls": 0}
-           for k in ("host_full_dp", "corridor_batches", "lcs_pairs")}
+           for k in ("host_full_dp", "corridor_batches", "wide_batches",
+                     "lcs_pairs")}
     wraps = [(gotoh_cuda, "gotoh_host", timer(acc["host_full_dp"])),
+             (gotoh_wide_cuda, "gotoh_wide_batch",
+              timer(acc["wide_batches"])),
              (msa, "gotoh", timer(acc["host_full_dp"])),
              (msa, "_banded_or_full", timer(acc["corridor_batches"])),
              (msa, "lcs_pairs", timer(acc["lcs_pairs"]))]
@@ -1548,35 +1567,230 @@ def finish_cpu_runs(runs: list, cmds: dict, details) -> None:
         print(f"{stem}: card VCF == cpu VCF ({len(a)} lines)")
 
 
-def phase_host_dp(work, details) -> None:
-    """`sr` on the card on long split reads with 4 reads per DEL (one
-    1 Mb contig, 2 DELs): the MSA then merges profiles wider than K2's
-    4,096 columns, which take the full DP on the host as host routes.
-    Checks the calls and prints the seconds of split-read assembly spent
-    in the host full DP, in the corridor batches (K3/K3-tb with the host
-    packing around them) and in the MSA's batched LCS."""
-    from delly_tpu_torch.ops import lcs_cuda
-    from delly_tpu_torch.testing.synth import make_long_split_dataset
+# long split reads with 4 reads per DEL: the MSA merges profiles wider than
+# K2's 4,096 columns, which run on K4/K4-tb; at 2 DELs (the card's VCF
+# held to a CPU run) and at LONG_SPLIT's full size (made by a worker)
+WIDE_2DEL = dict(n_contigs=1, contig_len=1_000_000, dels_per_contig=2,
+                 reads_per_del=4, read_len=12_000, jitter=200,
+                 pairs_per_contig=20_000, name="hostdp")
+WIDE_DATASETS = {"long-split 4 reads": ("make_long_split_dataset", dict(
+    n_contigs=4, contig_len=1_000_000, dels_per_contig=6, reads_per_del=4,
+    read_len=12_000, jitter=200, pairs_per_contig=20_000,
+    name="longsplit4"))}      # synth.LONG_SPLIT but for reads_per_del
 
-    bam, fa, truth = make_long_split_dataset(
-        work, n_contigs=1, contig_len=1_000_000, dels_per_contig=2,
-        reads_per_del=4, read_len=12_000, jitter=200,
-        pairs_per_contig=20_000, name="hostdp")
-    acc, wraps = msa_timers()
-    rec = []
-    wraps.append((lcs_cuda, "lcs", recorder(rec)))
-    vcf = os.path.join(work, "hostdp.vcf")
-    label = "sr long-split, 4 reads per DEL"
-    counts, stages = run_card(["sr", "-g", fa, "-o", vcf, bam], details,
-                              label, wraps)
-    lcs_once(label, counts, acc, rec)
-    tp, nt, good, nc = svmix_score(vcf, truth)
-    need(tp == nt == 2 and good == nc, f"{label}: truth check")
-    need(counts["host_routes"] > 0
-         and acc["host_full_dp"]["calls"] == counts["host_routes"],
-         f"{label}: {counts['host_routes']} host routes, "
-         f"{acc['host_full_dp']['calls']} host full-DP calls timed")
-    print_msa_split(label, stages, acc, details)
+
+def wide_recorder(record: list) -> list:
+    """Wraps for run_card that record each K4 launch's inputs and best
+    and the codes and lengths of the K4-tb launch after it (not the
+    tiles, which a later check makes again from the inputs)."""
+    from delly_tpu_torch.ops import gotoh_wide_cuda
+
+    def fwd(fn):
+        def recorded(*args):
+            best, bits = fn(*args)
+            record.append({"args": args, "best": best})
+            return best, bits
+        return recorded
+
+    def tb(fn):
+        def recorded(bits, ml, nl):
+            codes, lens = fn(bits, ml, nl)
+            record[-1].update(codes=codes, lens=lens)
+            return codes, lens
+        return recorded
+
+    return [(gotoh_wide_cuda, "gotoh_wide_forward", fwd),
+            (gotoh_wide_cuda, "gotoh_wide_traceback", tb)]
+
+
+def phase_wide(work, details, wide_fut) -> tuple:
+    """`sr` on the card on long split reads with 4 reads per DEL, first
+    on one 1 Mb contig with 2 DELs, then at LONG_SPLIT's full size (24
+    DELs, from a worker): the MSA merges profiles wider than K2's 4,096
+    columns, which K4/K4-tb serve. Checks the truth (2/2, 24/24), 0 host
+    routes and no host full DP, K4 and K4-tb launched once per launch
+    of each other, and, at 24 DELs, more K4 launches than gotoh_wide_batch
+    calls (a round's tiles cut under TILE_BUDGET); prints the seconds of
+    split-read assembly in the wide batches (K4/K4-tb with the host
+    packing around them), the corridor batches and the MSA's batched
+    LCS. Records every K4/K4-tb launch for check_wide. Returns
+    ({label: launches}, the 2-DEL run's command for the CPU runs,
+    {label: records})."""
+    from delly_tpu_torch.ops import lcs_cuda
+    from delly_tpu_torch.testing.synth import (
+        LONG_SPLIT, make_long_split_dataset,
+    )
+
+    need(WIDE_DATASETS["long-split 4 reads"][1] == dict(
+        LONG_SPLIT, reads_per_del=4, name="longsplit4"),
+        "the 24-DEL dataset is not LONG_SPLIT with 4 reads per DEL")
+    bam, fa, truth = make_long_split_dataset(work, **WIDE_2DEL)
+    made = wide_fut.result()
+    print(f"datasets: long-split with 4 reads per DEL generated in "
+          f"{made['seconds']:.1f}s by a worker")
+    bam24, fa24, truth24 = made["long-split 4 reads"]
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+    runs = {"sr long-split, 4 reads per DEL":
+            (["sr", "-g", fa, "-o", p("hostdp.{}.vcf"), bam], truth, 2),
+            "sr long-split, 4 reads per DEL, 24 DELs":
+            (["sr", "-g", fa24, "-o", p("longsplit4.{}.vcf"), bam24],
+             truth24, 24)}
+    launches, records = {}, {}
+    for label, (argv, want, n_del) in runs.items():
+        acc, wraps = msa_timers()
+        rec = []
+        wraps.append((lcs_cuda, "lcs", recorder(rec)))
+        wraps += wide_recorder(records.setdefault(label, []))
+        argv = [a.replace("{}", "cuda") for a in argv]
+        counts, stages = run_card(argv, details, label, wraps)
+        launches[label] = counts
+        lcs_once(label, counts, acc, rec)
+        tp, nt, good, nc = svmix_score(argv[argv.index("-o") + 1], want)
+        print(f"{label}: recall {tp}/{nt}, precision {good}/{nc}")
+        need(tp == nt == n_del and good == nc, f"{label}: truth check")
+        need(counts["host_routes"] == 0
+             and acc["host_full_dp"]["calls"] == 0,
+             f"{label}: {counts['host_routes']} host routes, "
+             f"{acc['host_full_dp']['calls']} host full-DP calls")
+        need(counts["gotoh_wide"] > 0
+             and counts["gotoh_wide_tb"] == counts["gotoh_wide"]
+             == len(records[label]),
+             f"{label}: K4 {counts['gotoh_wide']}, K4-tb "
+             f"{counts['gotoh_wide_tb']} launches")
+        if n_del == 24:
+            need(counts["gotoh_wide"] > acc["wide_batches"]["calls"],
+                 f"{label}: {counts['gotoh_wide']} K4 launches in "
+                 f"{acc['wide_batches']['calls']} gotoh_wide_batch calls")
+        print_msa_split(label, stages, acc, details)
+    return launches, {"sr long-split, 4 reads per DEL":
+                      runs["sr long-split, 4 reads per DEL"][0]}, records
+
+
+def check_wide(dev, records, details, step_ns) -> tuple:
+    """Every K4/K4-tb launch of phase_wide's runs, from its recorded
+    inputs: K4 again gives the run's best, and K4-tb on its tiles the
+    run's codes and lengths. Each launch timed through the wrappers (CUDA
+    events). Then the merges of every launch of both runs, their inputs
+    padded to the largest tile and put side by side, go through the plain
+    versions on the card at once (a row or a step of the plain versions
+    costs about the same for one merge as for many), and every merge's
+    best, bits of rows < mlen and columns < nlen, lens and codes must
+    equal the kernels'. The kernels line takes the 24-DEL run's launches,
+    summed, with their bounds (K2's 42 operations per cell, a byte
+    written per cell) and K4-tb's chain floor (the longest walk x
+    `step_ns`, the chase probe's step); per merge, ms per launch over
+    its merges beside one SM's and the whole card's operations bound for
+    the run's mean merge."""
+    import torch
+    import torch.nn.functional as F
+
+    from delly_tpu_torch.ops.gotoh_cuda import (
+        gotoh_forward_plain, gotoh_traceback_plain,
+    )
+    from delly_tpu_torch.ops.gotoh_wide_cuda import (
+        gotoh_wide_forward, gotoh_wide_traceback,
+    )
+
+    recs = [(label, r) for label, rs in records.items() for r in rs]
+    outs, alone, tb_alone = [], [], []
+    for i, (label, r) in enumerate(recs):
+        args = r["args"]
+        ml, nl = args[3], args[4]
+        best, bits = gotoh_wide_forward(*args)
+        codes, lens = gotoh_wide_traceback(bits, ml, nl)
+        same = torch.equal(best, r["best"]) and torch.equal(lens, r["lens"])
+        for g, k in enumerate(lens.tolist()):
+            same = same and torch.equal(codes[g, :k], r["codes"][g, :k])
+        need(same, f"{label} launch {i}: K4/K4-tb again differ from the run")
+        alone.append(cuda_ms(lambda: gotoh_wide_forward(*args), reps=3))
+        tb_alone.append(cuda_ms(lambda: gotoh_wide_traceback(bits, ml, nl),
+                                reps=3))
+        outs.append((best, bits, codes, lens))
+    M = max(r["args"][0].shape[1] for _l, r in recs)
+    N = max(r["args"][1].shape[2] for _l, r in recs)
+
+    def padded(k, x):       # prof (G, M, 6), wc2 (G, 5, N), d2 (G, N)
+        if k == 0:
+            return F.pad(x, (0, 0, 0, M - x.shape[1]))
+        return F.pad(x, (0, N - x.shape[-1])) if k < 3 else x
+
+    cat = [torch.cat([padded(k, r["args"][k]) for _l, r in recs])
+           for k in range(5)]
+    hv = recs[0][1]["args"][5:]
+    need(all(r["args"][5:] == hv for _l, r in recs),
+         "the wide runs' launches differ in end gaps or gap costs")
+    (pbest, pbits), p_ms = timed(lambda: gotoh_forward_plain(*cat, *hv))
+    (pcodes, plens), ptb_ms = timed(
+        lambda: gotoh_traceback_plain(pbits, cat[3], cat[4]))
+    g0, e_best, e_bits, e_tb = 0, 0, 0, 0
+    for best, bits, codes, lens in outs:
+        G = len(best)
+        e_best = max(e_best, int((best.long() - pbest[g0:g0 + G].long())
+                                 .abs().max()))
+        need(torch.equal(lens, plens[g0:g0 + G]), "K4-tb != plain (lengths)")
+        for g in range(G):
+            m, n, k = (int(cat[3][g0 + g]), int(cat[4][g0 + g]),
+                       int(lens[g]))
+            e_bits = max(e_bits, int((bits[g, :m, :n].int()
+                                      - pbits[g0 + g, :m, :n].int())
+                                     .abs().max()))
+            e_tb = max(e_tb, int((codes[g, :k].int()
+                                  - pcodes[g0 + g, :k].int()).abs().max()))
+        g0 += G
+    need(e_best == 0 and e_bits == 0,
+         f"K4 != plain (best {e_best}, bits {e_bits})")
+    need(e_tb == 0, "K4-tb != plain (codes)")
+    err = max(e_best, e_bits, e_tb)
+    del outs, pbits
+    print(f"K4/K4-tb: the wide runs' {len(recs)} launches, {g0} merges, "
+          f"equal to the plain versions ({p_ms:.1f} / {ptb_ms:.1f} ms for "
+          f"all at once)")
+    per_run, sm_rate = {}, INT32_OPS_PER_S / details["int32_ops_per_s"]["sms"]
+    for label in records:
+        idx = [i for i, (lb, _r) in enumerate(recs) if lb == label]
+        args = [recs[i][1]["args"] for i in idx]
+        ml = torch.cat([a[3] for a in args]).long()
+        nl = torch.cat([a[4] for a in args]).long()
+        lens = torch.cat([recs[i][1]["lens"] for i in idx]).long()
+        merges, cells = len(ml), int((ml * nl).sum())
+        steps, longest = int(lens.sum()), int(lens.max())
+        in_bytes = sum(x.numel() * 4 for a in args for x in a[:5])
+        floor_ms = longest * step_ns * 1e-6
+        shapes = [f"{len(a[3])}x({a[0].shape[1]}x{a[1].shape[2]})"
+                  for a in args]
+        run_ms = [alone[i] for i in idx]
+        tb_ms = [tb_alone[i] for i in idx]
+        per_merge = {
+            "ms_per_merge": sum(run_ms) / merges,
+            "one_sm_bound_ms": cells / merges * GOTOH_OPS_PER_CELL / sm_rate
+            * 1e3,
+            "card_bound_ms": cells / merges * GOTOH_OPS_PER_CELL
+            / INT32_OPS_PER_S * 1e3}
+        print(f"K4/K4-tb {label}: {len(idx)} launches ({', '.join(shapes)})"
+              f", {merges} merges, {cells} cells; K4 "
+              f"{[round(x, 3) for x in run_ms]} ms, the mean merge's cells "
+              f"{per_merge['one_sm_bound_ms']:.3f} ms on one SM and "
+              f"{per_merge['card_bound_ms']:.4f} ms on the card at the "
+              f"operations bound; K4-tb {[round(x, 4) for x in tb_ms]} ms, "
+              f"longest walk {longest} steps, chain floor {floor_ms:.4f} ms")
+        desc = (f"{merges} merges in {len(idx)} launches "
+                f"({', '.join(shapes)}), {label}")
+        per_run[label] = (
+            {"ms": sum(run_ms), "plain_ms": p_ms,
+             "plain_merges": g0, "shapes": desc, "launch_ms_alone": run_ms,
+             "cells": cells, **per_merge,
+             **bound(in_bytes + cells + 4 * merges,
+                     cells * GOTOH_OPS_PER_CELL)},
+            # K4-tb's step counted as K2-tb's (the same step table)
+            {"ms": sum(tb_ms), "plain_ms": ptb_ms, "plain_merges": g0,
+             "shapes": f"{desc}; {steps} walk steps",
+             "launch_ms_alone": tb_ms, "longest_walk_steps": longest,
+             "smem_step_ns": step_ns, "chain_floor_ms": floor_ms,
+             **bound(2 * steps + 12 * merges, 8 * steps)})
+    details["k4_runs"] = per_run
+    k4, k4tb = per_run["sr long-split, 4 reads per DEL, 24 DELs"]
+    k4["max_abs_err"] = k4tb["max_abs_err"] = err
+    return k4, k4tb
 
 
 # ---------------------------------------------------------------------------
@@ -1614,15 +1828,17 @@ def make_datasets(work, table) -> dict:
 
 
 def start_datasets(work):
-    """Generates the lr datasets and phase 5's datasets in two worker
-    processes (about 45 s of host work each), which run beside the
-    kernel checks and the sr runs. Returns (pool, {"lr": future,
-    "cohort": future}); the pool is spawned, not forked, since this
+    """Generates the lr datasets, phase 5's datasets and the 24-DEL
+    long-split dataset with 4 reads per DEL in three worker processes
+    (about 45 s of host work each), which run beside the kernel checks
+    and the sr runs. Returns (pool, {"lr": future, "cohort": future,
+    "wide": future}); the pool is spawned, not forked, since this
     process holds the card."""
-    pool = ProcessPoolExecutor(2, mp_context=get_context("spawn"))
+    pool = ProcessPoolExecutor(3, mp_context=get_context("spawn"))
     return pool, {"lr": pool.submit(make_datasets, work, LR_DATASETS),
                   "cohort": pool.submit(make_datasets, work,
-                                        COHORT_DATASETS)}
+                                        COHORT_DATASETS),
+                  "wide": pool.submit(make_datasets, work, WIDE_DATASETS)}
 
 
 def lr_sv_check(calls) -> bool:
@@ -2539,7 +2755,9 @@ def main() -> int:
         launches, k3_launches, cmds, lcs_records = phase_e2e(work, details)
         x1 = check_recorded_lcs(dev, lcs_records, details, lcs_step_ns)
         cram_pool, cram_futs = start_cram_writes(work, cmds)
-        phase_host_dp(work, details)
+        wide_launches, wide_cmd, wide_records = phase_wide(work, details,
+                                                           gen["wide"])
+        launches.update(wide_launches)
         lr_launches, lr_cmds, k1_lr = phase_lr(dev, work, details, gen["lr"])
         launches.update(lr_launches)
         cmds.update(lr_cmds)
@@ -2554,11 +2772,13 @@ def main() -> int:
         # versions), all at once in the background while the K3/K3-tb
         # checks and timings run
         p = lambda name: os.path.join(work, name)  # noqa: E731
+        cmds.update(wide_cmd)
         cpu_runs = start_cpu_runs(cmds, p)
         cpu_runs += start_cpu_workflows(flows, p)
         err3 = check_banded(dev, rng, details)
         k3, k3tb = measure_banded(dev, k3_launches, err3, sass_loops,
                                   step_ns)
+        k4, k4tb = check_wide(dev, wide_records, details, step_ns)
         finish_cpu_runs(cpu_runs[:len(cmds)], cmds, details)
         finish_cpu_workflows(cpu_runs[len(cmds):], flows, details)
     finally:
@@ -2609,7 +2829,11 @@ def main() -> int:
             ("gotoh_banded_tb", "delly_tpu_torch/csrc/gotoh_banded_tb.cu",
              "delly_tpu/ops/gotoh_banded.py:342", k3tb),
             ("lcs", "delly_tpu_torch/csrc/lcs.cu",
-             "delly_tpu/ops/msa.py:39", x1_meas)):
+             "delly_tpu/ops/msa.py:39", x1_meas),
+            ("gotoh_wide", "delly_tpu_torch/csrc/gotoh_wide.cu",
+             "delly_tpu/ops/gotoh_device.py:35", k4),
+            ("gotoh_wide_tb", "delly_tpu_torch/csrc/gotoh_wide_tb.cu",
+             "delly_tpu/ops/gotoh_device.py:101", k4tb)):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": total(name),
@@ -2623,7 +2847,9 @@ def main() -> int:
             **{k: v for k, v in meas.items() if k.startswith(
                 ("row_loop", "launch_ms", "longest", "smem_step",
                  "chain_floor", "case_", "device_ms", "lr_", "asm_",
-                 "deepgeno_", "word_steps", "lcs_step", "ns_per_step"))}})
+                 "deepgeno_", "word_steps", "lcs_step", "ns_per_step",
+                 "ms_per_merge", "one_sm_bound", "card_bound",
+                 "plain_merges"))}})
     details["kernels"] = kernels
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:

@@ -54,24 +54,13 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "gotoh_common.cuh"
+
 namespace {
 
 constexpr int kNinf = -1000000;        // -INF of ops/gotoh.py
 constexpr int kScanId = INT_MIN / 2;   // identity of the max-plus scan
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-// trunc(num / den) for den >= 1. The f32 quotient of |num| and den, with
-// the approximate reciprocal (1 ulp) and the product rounded toward
-// zero, is the exact quotient or one below it while |num| + den < 2^23;
-// one step of the remainder corrects it.
-__device__ __forceinline__ int profile_score(int num, int den) {
-  const int a = abs(num);
-  float rcp;                           // den >= 1: no denormal to handle
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(rcp) : "f"(__int2float_rn(den)));
-  int nq = __float2int_rz(-__fmul_rz(__int2float_rn(a), rcp));   // -q
-  if (a + nq * den >= den) --nq;       // the remainder a - q * den
-  return num < 0 ? nq : -nq;
-}
 
 // N ints from p (16-byte aligned)
 template <int N>

@@ -37,28 +37,12 @@
 #include <stdint.h>
 
 #include "bulk_copy.cuh"
+#include "gotoh_common.cuh"
 
 namespace {
 
 constexpr int kMaxStages = 2;   // windows in flight per walk, at most
 constexpr int kMaxDevices = 64; // devices whose attribute is tracked
-
-// One interior step from state `last` (0 = S, 1 = H, 2 = V) on a cell's
-// direction bits b (S==H, S==V, H opened, V opened), as 16 entries of 4
-// bits indexed by b: bit 0 the column steps left, bit 1 the row steps
-// up, bits 2-3 the next state. From S: H if S==H, else V if S==V, else
-// the diagonal, entering a gap and taking its first move in one step;
-// in a gap, its move, back to S where the gap was opened.
-__host__ __device__ constexpr uint64_t step_table(int last) {
-  uint64_t t = 0;
-  for (int b = 0; b < 16; ++b) {
-    const bool h = last == 1 || (last == 0 && (b & 1));
-    const bool v = !h && (last == 2 || (last == 0 && (b & 2)));
-    const int next = h ? ((b & 4) ? 0 : 1) : (v ? ((b & 8) ? 0 : 2) : 0);
-    t |= (uint64_t)((!v) | (!h) << 1 | next << 2) << (4 * b);
-  }
-  return t;
-}
 
 __global__ void __launch_bounds__(32)
 gotoh_tb_kernel(const uint8_t* __restrict__ bits,

@@ -7,7 +7,11 @@ tile never leaves the card. ``gotoh_batch`` keeps the contract of
 ``gotoh_pallas.gotoh_batch`` (:295-398): the same ``_eligible`` gate
 and 128...4096 K buckets, the profile packing on the host, and
 ``create_alignment_codes`` on the host. Results equal ops.gotoh.gotoh
-per job.
+per job. Merges that K2 refuses only for their width (more than 4,096
+columns, up to 16,384) go to K4/K4-tb (ops/gotoh_wide_cuda.py, the
+counterpart of the JAX package's device Gotoh, ops/gotoh_device.py);
+only merges wider still, or outside the alphabet and count-product
+gates (``_exact``), take the host DP.
 
 Bounds on the H100: the forward pass writes one byte per DP cell and
 its recurrence counts 42 integer operations per cell (the exact score's
@@ -57,12 +61,19 @@ _ALLOWED = frozenset(b"ACGTN-")  # uppercase only: the host pure-pair path
 # soft-masked (lowercase) input; those fall back to the host oracle
 
 
-def _eligible(a1: np.ndarray, a2: np.ndarray) -> bool:
-    m, n = a1.shape[1], a2.shape[1]
-    return (0 < m <= MAX_K and 0 < n <= MAX_K
-            and a1.shape[0] * a2.shape[0] * 125 < (1 << 24)
+def _exact(a1: np.ndarray, a2: np.ndarray) -> bool:
+    """The gates that decide the bytes: uppercase ACGTN- only, and
+    rows1 * rows2 * 125 < 2^24, which keeps the profile arithmetic
+    exact. The kernels' widths decide only where a merge runs."""
+    return (a1.shape[0] * a2.shape[0] * 125 < (1 << 24)
             and _ALLOWED.issuperset(a1.tobytes())
             and _ALLOWED.issuperset(a2.tobytes()))
+
+
+def _eligible(a1: np.ndarray, a2: np.ndarray) -> bool:
+    """K2's gate."""
+    m, n = a1.shape[1], a2.shape[1]
+    return 0 < m <= MAX_K and 0 < n <= MAX_K and _exact(a1, a2)
 
 
 # ---------------------------------------------------------------------------
@@ -71,71 +82,82 @@ def _eligible(a1: np.ndarray, a2: np.ndarray) -> bool:
 
 def gotoh_forward_plain(prof, wc2, d2, mlen, nlen, hfree: bool,
                         vfree: bool, go: int, ge: int):
-    """Forward DP over a batch: (best (G,) int32, bits (G, K, K) uint8).
-    Rows above a merge's mlen are left zero."""
+    """Forward DP over a batch: (best (G,) int32, bits (G, M, N) uint8)
+    for prof (G, M, 6), wc2 (G, 5, N), d2 (G, N): K2's square tiles (M =
+    N = K) and K4's (ops/gotoh_wide_cuda.py) alike. Rows above a merge's
+    mlen are left zero. int32 as in the kernels; the profile scores of
+    256 rows at a time, their numerators from one float64 product
+    (exact: every term is an integer far below 2^53)."""
+    block = 256
     dev = prof.device
-    G, K, _ = prof.shape
-    i64 = torch.int64
-    col = torch.arange(1, K + 1, dtype=i64, device=dev)[None, :]
-    ml = mlen.to(i64)
-    nl = nlen.to(i64)[:, None]
+    G, M, _ = prof.shape
+    N = wc2.shape[2]
+    i32 = torch.int32
+    col = torch.arange(1, N + 1, dtype=i32, device=dev)[None, :]
+    ml = mlen.to(torch.int64)
+    nl = nlen.to(torch.int64)[:, None]
     if vfree:
         vfc = col == nl
-        vg_open = torch.where(vfc, 0, go + ge)
-        vg_ext = torch.where(vfc, 0, ge)
+        vg_open = torch.where(vfc, 0, go + ge).to(i32)
+        vg_ext = torch.where(vfc, 0, ge).to(i32)
     else:
-        vg_open = torch.full((1, K), go + ge, dtype=i64, device=dev)
-        vg_ext = torch.full((1, K), ge, dtype=i64, device=dev)
-    w = wc2.to(i64)
-    dd = d2.to(i64)
-    S = (torch.zeros((G, K), dtype=i64, device=dev) if hfree
-         else (go + col * ge).expand(G, K).clone())
-    V = torch.full((G, K), NINF, dtype=i64, device=dev)
-    best = torch.full((G,), NINF, dtype=i64, device=dev)
-    bits = torch.zeros((G, K, K), dtype=torch.uint8, device=dev)
-    ninf_col = torch.full((G, 1), NINF, dtype=i64, device=dev)
+        vg_open = torch.full((1, N), go + ge, dtype=i32, device=dev)
+        vg_ext = torch.full((1, N), ge, dtype=i32, device=dev)
+    w = wc2.to(torch.float64)
+    dd = d2.to(torch.int64)[:, None, :]
+    S = (torch.zeros((G, N), dtype=i32, device=dev) if hfree
+         else (go + col * ge).expand(G, N).clone())
+    V = torch.full((G, N), NINF, dtype=i32, device=dev)
+    best = torch.full((G,), NINF, dtype=i32, device=dev)
+    bits = torch.zeros((G, M, N), dtype=torch.uint8, device=dev)
+    ninf_col = torch.full((G, 1), NINF, dtype=i32, device=dev)
     mmax = int(ml.max()) if G else 0
-    for r in range(1, mmax + 1):
-        p = prof[:, r - 1, :].to(i64)
-        num = (p[:, :5, None] * w).sum(1)
-        den = torch.clamp(p[:, 5:6] * dd, min=1)
+    for r0 in range(0, mmax, block):
+        p = prof[:, r0:min(r0 + block, mmax)].to(torch.int64)
+        num = torch.bmm(p[:, :, :5].to(torch.float64), w).to(torch.int64)
+        den = torch.clamp(p[:, :, 5:6] * dd, min=1)
         q = torch.div(num.abs(), den, rounding_mode="floor")
-        score = torch.where(num < 0, -q, q)
-        if hfree:
-            rf = (ml == r)[:, None]
-            O = torch.where(rf, 0, go + ge)
-            E = torch.where(rf, 0, ge)
-        else:
-            O, E = go + ge, ge
-        s_r0 = 0 if vfree else go + r * ge
-        s_r0_prev = 0 if (vfree or r == 1) else go + (r - 1) * ge
-        Vn = torch.maximum(S + vg_open, V + vg_ext)
-        Sd = torch.cat([torch.full((G, 1), s_r0_prev, dtype=i64, device=dev),
-                        S[:, :-1]], dim=1)
-        t = torch.maximum(Sd + score, Vn)
-        zin = torch.cat([torch.full((G, 1), s_r0, dtype=i64, device=dev),
-                         (t - col * E)[:, :-1]], dim=1)
-        H = torch.cummax(zin, dim=1).values + (col - 1) * E + O
-        Sn = torch.maximum(t, H)
-        Hp = torch.cat([ninf_col, H[:, :-1]], dim=1)
-        b = ((Sn == H).to(i64) | ((Sn == Vn).to(i64) << 1)
-             | ((H != Hp + E).to(i64) << 2)
-             | ((Vn != V + vg_ext).to(i64) << 3))
-        live = (r <= ml)[:, None]
-        bits[:, r - 1] = torch.where(live, b, 0).to(torch.uint8)
-        best = torch.where(ml == r, Sn.gather(1, nl - 1).squeeze(1), best)
-        S, V = Sn, Vn
-    return best.to(torch.int32), bits
+        scores = torch.where(num < 0, -q, q).to(i32)
+        for r in range(r0 + 1, r0 + p.shape[1] + 1):
+            score = scores[:, r - 1 - r0]
+            if hfree:
+                rf = (ml == r)[:, None]
+                O = torch.where(rf, 0, go + ge).to(i32)
+                E = torch.where(rf, 0, ge).to(i32)
+            else:
+                O, E = go + ge, ge
+            s_r0 = 0 if vfree else go + r * ge
+            s_r0_prev = 0 if (vfree or r == 1) else go + (r - 1) * ge
+            Vn = torch.maximum(S + vg_open, V + vg_ext)
+            Sd = torch.cat([torch.full((G, 1), s_r0_prev, dtype=i32,
+                                       device=dev), S[:, :-1]], dim=1)
+            t = torch.maximum(Sd + score, Vn)
+            zin = torch.cat([torch.full((G, 1), s_r0, dtype=i32, device=dev),
+                             (t - col * E)[:, :-1]], dim=1)
+            H = torch.cummax(zin, dim=1).values + (col - 1) * E + O
+            Sn = torch.maximum(t, H)
+            Hp = torch.cat([ninf_col, H[:, :-1]], dim=1)
+            u8 = torch.uint8
+            b = ((Sn == H).to(u8) | ((Sn == Vn).to(u8) << 1)
+                 | ((H != Hp + E).to(u8) << 2)
+                 | ((Vn != V + vg_ext).to(u8) << 3))
+            live = (r <= ml)[:, None]
+            bits[:, r - 1] = torch.where(live, b, 0)
+            best = torch.where(ml == r, Sn.gather(1, nl - 1).squeeze(1),
+                               best)
+            S, V = Sn, Vn
+    return best, bits
 
 
 def gotoh_traceback_plain(bits, mlen, nlen):
-    """Lockstep walk over a batch of tiles: (codes (G, 2K) uint8 in walk
-    order, lens (G,) int32). Same preference order as the kernel."""
+    """Lockstep walk over a batch of tiles (G, M, N): (codes (G, M + N)
+    uint8 in walk order, lens (G,) int32). Same preference order as the
+    kernels K2-tb and K4-tb."""
     dev = bits.device
-    G, K, _ = bits.shape
+    G, M, N = bits.shape
     i64 = torch.int64
-    L, cap = 2 * K, 4 * K + 8
-    flat = bits.reshape(G, K * K)
+    L, cap = M + N, 2 * (M + N) + 8
+    flat = bits.reshape(G, M * N)
     row = mlen.to(i64).clone()
     col = nlen.to(i64).clone()
     last = torch.zeros(G, dtype=i64, device=dev)
@@ -146,7 +168,7 @@ def gotoh_traceback_plain(bits, mlen, nlen):
         if not bool(alive.any()):
             break
         interior = (row > 0) & (col > 0)
-        idx = (row - 1).clamp(min=0) * K + (col - 1).clamp(min=0)
+        idx = (row - 1).clamp(min=0) * N + (col - 1).clamp(min=0)
         b = torch.where(interior, flat.gather(1, idx[:, None]).squeeze(1)
                         .to(i64), 0)
         is_s, is_h, is_v = last == 0, last == 1, last == 2
@@ -281,14 +303,16 @@ def gotoh_traceback(bits, mlen, nlen):
 # Batch entry point
 # ---------------------------------------------------------------------------
 
-def pack_bucket(jobs: list, K: int, sc: DnaScore):
-    """Host packing of one K bucket: query profiles on the DP-row axis
-    (A,C,G,T,N counts and the depth), the score-weighted target
-    profile, the target depth, and the lengths (numpy int32)."""
+def pack_bucket(jobs: list, K: int, sc: DnaScore, N: int | None = None):
+    """Host packing of one K bucket (K rows and N = K columns, or N given):
+    query profiles on the DP-row axis (A,C,G,T,N counts and the depth),
+    the score-weighted target profile, the target depth, and the lengths
+    (numpy int32)."""
     G = len(jobs)
+    N = K if N is None else N
     prof = np.zeros((G, K, 6), dtype=np.int32)
-    c2 = np.zeros((G, 5, K), dtype=np.int32)
-    d2 = np.zeros((G, K), dtype=np.int32)
+    c2 = np.zeros((G, 5, N), dtype=np.int32)
+    d2 = np.zeros((G, N), dtype=np.int32)
     ml = np.zeros(G, dtype=np.int32)
     nl = np.zeros(G, dtype=np.int32)
     for gi, (a1, a2) in enumerate(jobs):
@@ -310,24 +334,34 @@ def pack_bucket(jobs: list, K: int, sc: DnaScore):
 def gotoh_batch(jobs, ac=(False, False), sc: DnaScore | None = None):
     """Batched gotoh() over a list of (a1, a2) jobs on the run's device:
     [(score, merged)] with the same values as ops.gotoh.gotoh per job.
-    Jobs the kernel cannot serve (exotic alphabet, count-product
-    overflow, oversized) take the host DP individually and count as
-    host routes. Under an active mesh (parallel/dispatch.py) each K
-    bucket is cut into contiguous chunks, one per device, after that
-    gate."""
+    Jobs of up to 4,096 columns run on K2/K2-tb, wider ones of up to
+    16,384 on K4/K4-tb (gotoh_wide_cuda.gotoh_wide_batch). Jobs neither
+    serves (exotic alphabet, count-product overflow, wider than 16,384)
+    take the host DP individually and count as host routes. Under an
+    active mesh (parallel/dispatch.py) each K bucket is cut into
+    contiguous chunks, one per device, after that gate."""
+    from delly_tpu_torch.ops.gotoh_wide_cuda import (
+        gotoh_wide_batch, wide_eligible,
+    )
     from delly_tpu_torch.utils import torchenv
 
     sc = sc or DnaScore()
     jobs = [(to_align(a1), to_align(a2)) for a1, a2 in jobs]
     results = [None] * len(jobs)
-    by_bucket = {}
+    by_bucket, wide = {}, []
     for idx, (a1, a2) in enumerate(jobs):
-        if not _eligible(a1, a2):
+        if _eligible(a1, a2):
+            K = _bucket_k(max(a1.shape[1], a2.shape[1]))
+            by_bucket.setdefault(K, []).append(idx)
+        elif wide_eligible(a1, a2):
+            wide.append(idx)
+        else:
             dispatch.count("host_routes")
             results[idx] = gotoh_host(a1, a2, ac=ac, sc=sc)
-            continue
-        K = _bucket_k(max(a1.shape[1], a2.shape[1]))
-        by_bucket.setdefault(K, []).append(idx)
+    if wide:
+        for idx, res in zip(wide, gotoh_wide_batch(
+                [jobs[i] for i in wide], ac, sc)):
+            results[idx] = res
     dev = torchenv.device()
     mesh = dispatch.get_mesh()
     for K, idxs in sorted(by_bucket.items()):

@@ -1,0 +1,230 @@
+"""K4 and K4-tb: profile Gotoh for MSA merges wider than K2's 4,096
+columns, up to 16,384.
+
+Replaces ``delly_tpu/ops/gotoh_device.py`` (X2) over the widths that K2
+(ops/gotoh_cuda.py) does not serve: its XLA scan ``_build`` (:35) becomes
+csrc/gotoh_wide.cu and its host walk ``_traceback`` (:101)
+csrc/gotoh_wide_tb.cu, so the direction tile never leaves the card.
+Only the gates that decide the bytes are X2's: the alphabet and the
+count product (``gotoh_cuda._exact``); X2's cap of m * n <= 2^26 cells
+sized a tile for a TPU and is not kept. Results equal ops.gotoh.gotoh
+per job.
+
+A merge's tile is mlen x nlen bytes of direction bits; a launch packs its
+merges to the largest of each (columns to a multiple of 16), not to a
+square bucket, and holds at most TILE_BUDGET bytes of tiles (``chunks``).
+The plain versions are K2's (``gotoh_forward_plain``,
+``gotoh_traceback_plain``), which take such rectangular tiles. Each
+wrapper launches its kernel on CUDA tensors (or raises) and runs the
+plain version on CPU tensors.
+
+Bounds on the H100: K4 counts K2's 42 integer operations per cell and
+writes one byte per cell, so it is bound by operations; it runs one
+block per merge. K4-tb is a chain of dependent byte loads per merge
+(latency), one warp per merge.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from delly_tpu_torch.ops import _build
+from delly_tpu_torch.ops.gotoh import create_alignment_codes
+from delly_tpu_torch.ops.gotoh_cuda import (
+    MAX_K, _check, _exact, gotoh_forward_plain, gotoh_traceback_plain,
+    pack_bucket,
+)
+from delly_tpu_torch.parallel import dispatch
+
+BUCKETS = (8192, 16384)     # widest dimension of a merge, by launch group
+MAX_WIDE = BUCKETS[-1]
+TILE_BUDGET = 1 << 31       # bytes of direction bits in one launch
+TB_WINDOW_BYTES = 16_384    # K4-tb's window
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def wide_eligible(a1: np.ndarray, a2: np.ndarray) -> bool:
+    """K4's gate: a merge that K2 refuses only for its width."""
+    m, n = a1.shape[1], a2.shape[1]
+    return (max(m, n) > MAX_K and 0 < m <= MAX_WIDE and 0 < n <= MAX_WIDE
+            and _exact(a1, a2))
+
+
+def _bucket_w(x: int) -> int:
+    return next(b for b in BUCKETS if x <= b)
+
+
+def tile_shape(ms, ns) -> tuple:
+    """(M, N) of a launch's tiles for merges of ms x ns cells: the
+    largest of each, N rounded up to a multiple of 16 (K4's rows are
+    written 16 bytes a thread)."""
+    return max(ms), -(-max(ns) // 16) * 16
+
+
+def chunks(ms, ns, budget: int | None = None) -> list:
+    """Merges of ms[i] x ns[i] cells, in order, cut into runs whose
+    tiles, G x M x N bytes (``tile_shape``), fit `budget` (TILE_BUDGET
+    when None): [(lo, hi)]. A merge alone always makes a run."""
+    budget = TILE_BUDGET if budget is None else budget
+    out, lo = [], 0
+    for hi in range(1, len(ms) + 1):
+        M, N = tile_shape(ms[lo:hi], ns[lo:hi])
+        if hi - lo > 1 and (hi - lo) * M * N > budget:
+            out.append((lo, hi - 1))
+            lo = hi - 1
+    if len(ms) > lo:
+        out.append((lo, len(ms)))
+    return out
+
+
+def tb_geometry(N: int) -> tuple:
+    """K4-tb's window for tiles of N columns: (rows, columns, shared
+    memory bytes). TB_WINDOW_BYTES of shared memory, up to 128 columns
+    (a multiple of 16, at most N) and as many rows as fill it."""
+    cols = min(128, N)
+    rows = TB_WINDOW_BYTES // cols
+    return rows, cols, rows * cols
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _lib(name: str):
+    lib = _build.load(name)
+    if name == "gotoh_wide" and lib.gotoh_wide_launch.argtypes is None:
+        lib.gotoh_wide_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                          _I, _I, _I, _P, _P, _P]
+        lib.gotoh_wide_launch.restype = _I
+    if name == "gotoh_wide_tb" and lib.gotoh_wide_tb_launch.argtypes is None:
+        lib.gotoh_wide_tb_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
+                                             _P, _P, _P]
+        lib.gotoh_wide_tb_launch.restype = _I
+    return lib
+
+
+def _check_tile(name: str, M: int, N: int) -> None:
+    if not (1 <= M <= MAX_WIDE and 16 <= N <= MAX_WIDE and N % 16 == 0):
+        raise ValueError(f"{name}: tile {M} x {N}: rows must be 1..{MAX_WIDE}"
+                         f" and columns a multiple of 16 in 16..{MAX_WIDE}")
+
+
+def gotoh_wide_forward(prof, wc2, d2, mlen, nlen, hfree: bool, vfree: bool,
+                       go: int, ge: int):
+    """K4: (best (G,) int32, bits (G, M, N) uint8) for prof (G, M, 6),
+    wc2 (G, 5, N), d2 (G, N), mlen/nlen (G,), all int32, with 1 <= mlen
+    <= M and 1 <= nlen <= N."""
+    G, M, N = prof.shape[0], prof.shape[1], wc2.shape[2]
+    _check_tile("gotoh_wide", M, N)
+    i32 = torch.int32
+    _check("gotoh_wide", prof.device, (
+        ("prof", prof, i32, (G, M, 6)), ("wc2", wc2, i32, (G, 5, N)),
+        ("d2", d2, i32, (G, N)), ("mlen", mlen, i32, (G,)),
+        ("nlen", nlen, i32, (G,))))
+    if prof.device.type == "cpu":
+        return gotoh_forward_plain(prof, wc2, d2, mlen, nlen, hfree, vfree,
+                                   go, ge)
+    if prof.device.type != "cuda":
+        raise ValueError(f"gotoh_wide: unsupported device {prof.device}")
+    best = torch.empty(G, dtype=i32, device=prof.device)
+    bits = torch.empty((G, M, N), dtype=torch.uint8, device=prof.device)
+    if G == 0:
+        return best, bits
+    if any(x.data_ptr() % 16 for x in (prof, wc2, d2)):
+        raise ValueError("gotoh_wide: prof, wc2 and d2 must be 16-byte "
+                         "aligned")
+    rc = _lib("gotoh_wide").gotoh_wide_launch(
+        prof.data_ptr(), wc2.data_ptr(), d2.data_ptr(), mlen.data_ptr(),
+        nlen.data_ptr(), G, M, N, int(hfree), int(vfree), int(go), int(ge),
+        best.data_ptr(), bits.data_ptr(), _build.stream_ptr(prof.device))
+    _build.check(rc, "gotoh_wide")
+    dispatch.count("gotoh_wide")
+    return best, bits
+
+
+def gotoh_wide_traceback(bits, mlen, nlen):
+    """K4-tb: (codes (G, M + N) uint8 in walk order, lens (G,) int32)
+    for bits (G, M, N) uint8."""
+    G, M, N = bits.shape
+    _check_tile("gotoh_wide_tb", M, N)
+    _check("gotoh_wide_tb", bits.device, (
+        ("bits", bits, torch.uint8, (G, M, N)),
+        ("mlen", mlen, torch.int32, (G,)), ("nlen", nlen, torch.int32, (G,))))
+    if bits.device.type == "cpu":
+        return gotoh_traceback_plain(bits, mlen, nlen)
+    if bits.device.type != "cuda":
+        raise ValueError(f"gotoh_wide_tb: unsupported device {bits.device}")
+    codes = torch.empty((G, M + N), dtype=torch.uint8, device=bits.device)
+    lens = torch.empty(G, dtype=torch.int32, device=bits.device)
+    if G == 0:
+        return codes, lens
+    if bits.data_ptr() % 16:
+        raise ValueError("gotoh_wide_tb: bits must be 16-byte aligned")
+    rows, cols, _smem = tb_geometry(N)
+    rc = _lib("gotoh_wide_tb").gotoh_wide_tb_launch(
+        bits.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, M, N, rows,
+        cols, codes.data_ptr(), lens.data_ptr(),
+        _build.stream_ptr(bits.device))
+    _build.check(rc, "gotoh_wide_tb")
+    dispatch.count("gotoh_wide_tb")
+    return codes, lens
+
+
+# ---------------------------------------------------------------------------
+# Batch entry point
+# ---------------------------------------------------------------------------
+
+def gotoh_wide_batch(jobs, ac, sc) -> list:
+    """[(score, merged)] for (a1, a2) jobs that ``wide_eligible`` admits
+    (numpy alignment arrays), on the run's device, the same values as
+    ops.gotoh.gotoh per job. Jobs are grouped by BUCKETS (the wider of m
+    and n); under an active mesh (parallel/dispatch.py) each group is cut
+    into contiguous chunks, one per device, and each device runs its
+    share in launches of at most TILE_BUDGET bytes of tiles (``chunks``),
+    K4 then K4-tb on each."""
+    from delly_tpu_torch.utils import torchenv
+
+    results = [None] * len(jobs)
+    groups = {}
+    for idx, (a1, a2) in enumerate(jobs):
+        groups.setdefault(_bucket_w(max(a1.shape[1], a2.shape[1])),
+                          []).append(idx)
+    dev = torchenv.device()
+    mesh = dispatch.get_mesh()
+    for _W, idxs in sorted(groups.items()):
+        def launch(d, lo, hi, idxs=idxs):
+            part = idxs[lo:hi]
+            ms = [jobs[i][0].shape[1] for i in part]
+            ns = [jobs[i][1].shape[1] for i in part]
+            outs = []
+            for clo, chi in chunks(ms, ns):
+                M, N = tile_shape(ms[clo:chi], ns[clo:chi])
+                packed = pack_bucket([jobs[i] for i in part[clo:chi]], M, sc,
+                                     N)
+                prof, wc2, d2, ml, nl = (torch.from_numpy(x).to(d)
+                                         for x in packed)
+                best, bits = gotoh_wide_forward(
+                    prof, wc2, d2, ml, nl, bool(ac[0]), bool(ac[1]),
+                    int(sc.go), int(sc.ge))
+                codes, lens = gotoh_wide_traceback(bits, ml, nl)
+                del bits            # the next launch may reuse its memory
+                outs.append((part[clo:chi], best, codes, lens))
+            return outs
+
+        runs = ([launch(dev, 0, len(idxs))] if mesh is None else
+                dispatch.split_batch(mesh, "gotoh_wide", len(idxs), launch))
+        for outs in runs:
+            for part, best, codes, lens in outs:
+                best = best.cpu().numpy()
+                codes = codes.cpu().numpy()
+                lens = lens.cpu().numpy()
+                for slot, idx in enumerate(part):
+                    a1, a2 = jobs[idx]
+                    fwd = codes[slot, :lens[slot]][::-1].astype(np.int64)
+                    results[idx] = (int(best[slot]),
+                                    create_alignment_codes(fwd, a1, a2))
+    return results

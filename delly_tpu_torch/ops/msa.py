@@ -278,8 +278,11 @@ def distance_matrix_from_lcs(seqs: list, ls) -> np.ndarray:
 def _gotoh_dispatch_batch(pairs: list, ac, sc):
     """Batched merge dispatch: the long sequence pairs of the round go
     to the corridor kernels K3/K3-tb together (_banded_or_full), every
-    other merge through one gotoh_batch call (K2, with K2-tb for the
-    traceback)."""
+    other merge through one gotoh_batch call: K2 with K2-tb for the
+    traceback up to 4,096 columns, K4 with K4-tb up to 16,384
+    (ops/gotoh_wide_cuda.py), the host DP only past that width or for
+    lowercase letters or a count product that breaks the exact profile
+    arithmetic (one host route each)."""
     out = [None] * len(pairs)
     groups = ([], [])
     for k, (a1, a2) in enumerate(pairs):

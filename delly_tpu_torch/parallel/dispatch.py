@@ -5,9 +5,13 @@ its kernel, and nowhere else (K1 once per strip of a query longer than
 8,192 rows). A run can then show that its main path really went through
 the kernels (chip_smoke.py reads them around every run).
 ``host_routes`` counts MSA merges that took a host DP instead of a
-kernel: merges the Gotoh kernel does not serve (``_eligible`` in
-ops/gotoh_cuda.py); long sequence merges whose corridor would be wider
-than 4,096 or whose traceback touches the corridor's edge (ops/msa.py);
+kernel: merges neither profile Gotoh kernel serves (K2 up to 4,096
+columns, ``_eligible`` in ops/gotoh_cuda.py; K4 up to 16,384,
+``wide_eligible`` in ops/gotoh_wide_cuda.py: letters other than
+uppercase ACGTN-, a count product that would break the profile
+arithmetic's exactness, or wider than 16,384); long sequence merges
+whose corridor would be wider than 4,096 or whose traceback touches the
+corridor's edge (ops/msa.py);
 and the jobs that ``gotoh_banded_batch`` (ops/gotoh_banded_cuda.py)
 sends to a host DP. ``rowscan`` counts the batches of
 ``batched_edit_distance`` (ops/edist.py) that K1 does not serve and that
@@ -18,7 +22,8 @@ kernels, not among them.
 
 Mesh. The active mesh (parallel/mesh.py) is consulted where the JAX
 package consults its own: K1 in ``ops/edist.py batched_edit_distance``,
-K2/K2-tb in ``ops/gotoh_cuda.py gotoh_batch``, K3/K3-tb in
+K2/K2-tb in ``ops/gotoh_cuda.py gotoh_batch``, K4/K4-tb in
+``ops/gotoh_wide_cuda.py gotoh_wide_batch``, K3/K3-tb in
 ``ops/gotoh_banded_cuda.py gotoh_banded_batch`` and the CNV window math
 in ``parallel/depth_step.py``. Each cuts its job batch into contiguous
 chunks, one per device in mesh order, after the gates that choose a
@@ -45,7 +50,7 @@ import threading
 from collections import Counter
 
 KERNELS = ("myers", "gotoh", "gotoh_tb", "gotoh_banded", "gotoh_banded_tb",
-           "lcs")
+           "lcs", "gotoh_wide", "gotoh_wide_tb")
 
 launches = Counter()
 hits = Counter()            # (engine, mesh position) -> chunks run

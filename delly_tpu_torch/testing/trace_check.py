@@ -48,9 +48,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 KERNEL_OF = {"myers_thread": "myers", "myers_lanes": "myers",
              "gotoh": "gotoh", "gotoh_tb": "gotoh_tb",
              "banded": "gotoh_banded", "banded_tb": "gotoh_banded_tb",
-             "lcs": "lcs"}
+             "lcs": "lcs", "gotoh_wide": "gotoh_wide",
+             "gotoh_wide_tb": "gotoh_wide_tb"}
 COUNTERS = ("myers", "gotoh", "gotoh_tb", "gotoh_banded", "gotoh_banded_tb",
-            "lcs")
+            "lcs", "gotoh_wide", "gotoh_wide_tb")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # seconds that a process of `start` takes to get ready for `go`
 WARMUP_S = 20.0

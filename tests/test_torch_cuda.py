@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from delly_tpu_torch.ops import gotoh_banded_cuda, gotoh_cuda
+from delly_tpu_torch.ops import gotoh_banded_cuda, gotoh_cuda, gotoh_wide_cuda
 from delly_tpu_torch.ops.gotoh import DnaScore, gotoh, to_align
 from delly_tpu_torch.ops.myers import (alphabet_lut, alphabet_size,
                                        myers_plain)
@@ -254,6 +254,102 @@ def test_gotoh_tb_more_merges_than_a_wave(card, K, n_jobs):
                                      K * 3 // 4, 1, K), (True, True))
 
 
+def _wide_case(seed, W, sizes, rows=2):
+    """K4's packed launch of merges of (m, n) `sizes` (m DP rows against
+    n columns, the tile (max m, max n to a multiple of 16), m or n past
+    4,096 up to W): a profile of `rows` rows of a mutated base against a
+    mutated copy, or against random letters where n is 1."""
+    rng = random.Random(seed)
+    jobs = []
+    for m, n in sizes:
+        base = _rand_seq(rng, max(m, n), max(m, n))
+        a1 = [_mutate(rng, base)[:m].ljust(m, "A") for _ in range(rows)]
+        a1 = np.array([np.frombuffer(x.encode(), np.uint8) for x in a1])
+        a2 = to_align(_mutate(rng, base)[:n].ljust(n, "C"))
+        jobs.append((a1, a2))
+    assert max(max(a.shape[1], b.shape[1]) for a, b in jobs) <= W
+    M, N = gotoh_wide_cuda.tile_shape([a.shape[1] for a, _ in jobs],
+                                      [b.shape[1] for _, b in jobs])
+    return [torch.from_numpy(x) for x in
+            gotoh_cuda.pack_bucket(jobs, M, DnaScore(), N)]
+
+
+def _assert_wide(card, prof, wc2, d2, ml, nl, ac):
+    """K4 and K4-tb on the card against the plain versions, run on the
+    card too (the host would take minutes at 16,384), on the contract's
+    cells: best, the bits of rows < mlen and columns < nlen, lens and
+    the codes; one launch each."""
+    dev = [x.to(card) for x in (prof, wc2, d2, ml, nl)]
+    want_best, want_bits = gotoh_cuda.gotoh_forward_plain(
+        *dev, ac[0], ac[1], -10, -1)
+    want_codes, want_lens = gotoh_cuda.gotoh_traceback_plain(
+        want_bits, dev[3], dev[4])
+    dispatch.reset()
+    best, bits = gotoh_wide_cuda.gotoh_wide_forward(*dev, ac[0], ac[1], -10,
+                                                    -1)
+    codes, lens = gotoh_wide_cuda.gotoh_wide_traceback(bits, dev[3], dev[4])
+    torch.cuda.synchronize()
+    counts = dispatch.snapshot()
+    assert counts["gotoh_wide"] == counts["gotoh_wide_tb"] == 1
+    assert torch.equal(best, want_best)
+    assert torch.equal(lens, want_lens)
+    for g in range(len(ml)):
+        m, n, k = int(ml[g]), int(nl[g]), int(lens[g])
+        assert torch.equal(bits[g, :m, :n], want_bits[g, :m, :n])
+        assert torch.equal(codes[g, :k], want_codes[g, :k])
+
+
+WIDE_CASES = {
+    # jagged lengths: the tile sized by the longest m and n
+    "8192": (8192, [(8192, 7900), (6000, 8100), (4200, 300)]),
+    "16384": (16384, [(16384, 16000), (12300, 12100), (700, 16384)]),
+    # walks along row 0 or column 0 and thin tiles
+    "edges": (16384, [(12000, 1), (1, 12000), (5000, 16), (16, 5000)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac", ACS)
+@pytest.mark.parametrize("kind", list(WIDE_CASES))
+def test_gotoh_wide_kernels_match_plain(card, ac, kind):
+    """K4/K4-tb at both wide buckets (blocks of 512 and 1,024 threads),
+    jagged lengths, and mlen or nlen of 1 with thin tiles (one warp)."""
+    W, sizes = WIDE_CASES[kind]
+    _assert_wide(card, *_wide_case(len(sizes) + W, W, sizes), ac)
+
+
+@pytest.mark.cuda
+def test_gotoh_wide_batch_chunked_on_card(card, monkeypatch):
+    """gotoh_batch on the card with K4's tile budget lowered so that six
+    wide merges take three launches: each equal to the host oracle, no
+    host route."""
+    from delly_tpu_torch.utils import torchenv
+
+    rng = random.Random(8)
+    jobs = []
+    for _ in range(6):
+        base = _rand_seq(rng, 4500, 5000)
+        jobs.append((to_align(_mutate(rng, base)),
+                     to_align(_mutate(rng, base))))
+    M, N = gotoh_wide_cuda.tile_shape([a.shape[1] for a, _ in jobs],
+                                      [b.shape[1] for _, b in jobs])
+    monkeypatch.setenv(torchenv.ENV, "cuda")
+    monkeypatch.setattr(gotoh_wide_cuda, "TILE_BUDGET", 2 * M * N)
+    torchenv.reset()
+    dispatch.reset()
+    try:
+        got = gotoh_cuda.gotoh_batch(jobs, ac=(True, True))
+    finally:
+        torchenv.reset()
+    counts = dispatch.snapshot()
+    assert counts["gotoh_wide"] == counts["gotoh_wide_tb"] == 3
+    assert counts["host_routes"] == 0
+    for (a1, a2), (s, mg) in zip(jobs, got):
+        hs, hm = gotoh(a1, a2, ac=(True, True))
+        assert s == hs
+        np.testing.assert_array_equal(mg, hm)
+
+
 def _banded_case(seed, n_jobs, lo, hi):
     """Long pairs of a random sequence and a mutated copy (n <= m)."""
     rng = random.Random(seed)
@@ -459,7 +555,7 @@ def test_gotoh_batch_on_card_matches_host(card, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine", ["edist", "gotoh_msa", "gotoh_banded",
-                                    "cnv_depth"])
+                                    "gotoh_wide", "cnv_depth"])
 def test_mesh_over_every_card_matches_one_device(card, monkeypatch, engine):
     """Each kernel's job batch split over a mesh of every visible card
     (parallel/dispatch.py) equals the run without a mesh, and every card
@@ -490,6 +586,10 @@ def test_mesh_over_every_card_matches_one_device(card, monkeypatch, engine):
                 for _ in range(n)]
         run = lambda: gotoh_banded_cuda.gotoh_banded_batch(  # noqa: E731
             jobs, ac=(True, True), band=1024)
+    elif engine == "gotoh_wide":
+        jobs = [(_rand_seq(prng, 1, 600), _rand_seq(prng, 4097, 5000))
+                for _ in range(n)]
+        run = lambda: gotoh_cuda.gotoh_batch(jobs, ac=(True, True))  # noqa
     else:
         covsum = np.floor(rng.gamma(20.0, 8.0, size=50_000 + n))
         expcov = rng.gamma(20.0, 8.0, size=covsum.size)

@@ -19,7 +19,7 @@ import torch
 
 from delly_tpu.ops.gotoh import DnaScore, gotoh
 from delly_tpu.ops.gotoh_pallas import gotoh_batch as jax_gotoh_batch
-from delly_tpu_torch.ops import gotoh_cuda
+from delly_tpu_torch.ops import gotoh_cuda, gotoh_wide_cuda
 from delly_tpu_torch.ops.gotoh import DnaScore as TDnaScore
 from delly_tpu_torch.parallel import dispatch
 from test_torch_cuda import deep_jobs
@@ -110,11 +110,13 @@ def test_mixed_buckets_and_scoring(torch_cpu):
 
 def test_fallback_paths(torch_cpu):
     """Exotic alphabet and oversized jobs take the host DP inside the
-    same call, in order, and count as host routes."""
+    same call, in order, and count as host routes. Oversized is wider
+    than the widest kernel, K4 (MAX_WIDE columns): merges of up to that
+    width run on K2 or K4."""
     rng = random.Random(17)
     jobs = [(_rand_seq(rng, 10, 30), _rand_seq(rng, 10, 30)),
             ("ACXGT", "ACGT"),
-            ("A" * (gotoh_cuda.MAX_K + 1), "AC")]
+            ("A" * (gotoh_wide_cuda.MAX_WIDE + 1), "AC")]
     dispatch.reset()
     got = gotoh_cuda.gotoh_batch(jobs, ac=(True, True))
     assert dispatch.snapshot()["host_routes"] == 2

@@ -1,0 +1,234 @@
+"""K4 and K4-tb (profile Gotoh for MSA merges wider than K2's 4,096
+columns) of the PyTorch port against the JAX package.
+
+The port's gotoh_batch sends such merges to gotoh_wide_batch, which on
+CPU tensors runs the plain forward DP and the plain walk. Its scores and
+merged rows must equal the JAX package's host oracle ops.gotoh.gotoh and
+its device Gotoh ops.gotoh_device.gotoh_device (X2, run by JAX on the
+CPU), and the port's msa_batch on items whose merges pass 4,096 columns
+must equal the JAX package's msa_batch. Merges past the widest kernel,
+lowercase ones and count-product overflows take the host DP, one host
+route each. Inputs come from random.Random(seed); tolerance: exact
+equality (integer scores, byte rows, consensus strings).
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+import delly_tpu.ops.msa as jmsa
+import delly_tpu_torch.ops.msa as tmsa
+from delly_tpu.ops.gotoh import DnaScore, gotoh
+from delly_tpu.ops.gotoh_device import gotoh_device
+from delly_tpu_torch.ops import gotoh_cuda, gotoh_wide_cuda as wide
+from delly_tpu_torch.ops.gotoh import DnaScore as TDnaScore
+from delly_tpu_torch.parallel import dispatch
+from torch_card import torch_cpu  # noqa: F401
+
+ACS = [(False, False), (True, False), (False, True), (True, True)]
+SCHEMES = [(5, -4, -10, -1), (2, -3, -6, -2)]
+
+
+def _rand_seq(rng, k, alpha="ACGT"):
+    return "".join(rng.choice(alpha) for _ in range(k))
+
+
+def _block(rng, base, rows):
+    """An alignment block of `rows` rows over `base`: each row the base
+    with 8% of its columns replaced by a letter, or with more than one
+    row, a letter or a gap. (A one-row block is a read: the host scores a
+    pair of reads on their raw bytes, where a gap would score otherwise
+    than in a profile, on the host as in delly_tpu's device Gotoh.)"""
+    a = np.repeat(np.frombuffer(base.encode(), np.uint8)[None], rows, 0)
+    hit = np.array([[rng.random() < 0.08 for _ in base] for _ in range(rows)])
+    subs = _rand_seq(rng, int(hit.sum()), "ACGT-" if rows > 1 else "ACGT")
+    a[hit] = np.frombuffer(subs.encode(), np.uint8)
+    return a
+
+
+def _wide_jobs(seed):
+    """Profiles of 1-3 rows: a1 of 4,097-4,300 columns against a2 of
+    300-4,300: a mutated slice of a1's base, a mutated whole base, and an
+    unrelated sequence."""
+    rng = random.Random(seed)
+    jobs = []
+    for kind in ("slice", "whole", "random"):
+        base = _rand_seq(rng, rng.randint(4097, 4300))
+        if kind == "slice":
+            lo = rng.randint(0, 3000)
+            other = base[lo:lo + rng.randint(300, 1000)]
+        elif kind == "whole":
+            other = base[:rng.randint(4000, len(base))]
+        else:
+            other = _rand_seq(rng, rng.randint(300, 4300))
+        jobs.append((_block(rng, base, rng.randint(1, 3)),
+                     _block(rng, other, rng.randint(1, 3))))
+    assert all(wide.wide_eligible(a1, a2) for a1, a2 in jobs)
+    return jobs
+
+
+def _assert_wide(jobs, ac, scheme, device=False):
+    """gotoh_batch through the wide route: 0 host routes, each job equal
+    to ops.gotoh.gotoh (and to gotoh_device with `device`)."""
+    dispatch.reset()
+    got = gotoh_cuda.gotoh_batch(jobs, ac=ac, sc=TDnaScore(*scheme))
+    assert dispatch.snapshot()["host_routes"] == 0
+    sc = DnaScore(*scheme)
+    for (a1, a2), (ds, dm) in zip(jobs, got):
+        hs, hm = gotoh(a1, a2, ac=ac, sc=sc)
+        assert ds == hs
+        np.testing.assert_array_equal(dm, hm)
+        if device:
+            assert a1.shape[1] * a2.shape[1] <= 1 << 26
+            ws, wm = gotoh_device(a1, a2, ac=ac, sc=sc)
+            assert ds == ws
+            np.testing.assert_array_equal(dm, wm)
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_wide_matches_host(torch_cpu, k):
+    """All four end-gap configurations, two under the MSA's scores and
+    two under others; at the MSA's configuration (True, True) also
+    against the JAX package's device Gotoh (X2, which K4/K4-tb port),
+    every job inside its m * n <= 2^26 range."""
+    ac, scheme = ACS[k], SCHEMES[k in (1, 2)]
+    _assert_wide(_wide_jobs(31 + k), ac, scheme, device=ac == (True, True))
+
+
+def test_msa_batch_wide_merges(torch_cpu):
+    """Two items of three ~4.2 kb reads: every merge passes 4,096
+    columns and none is a long pair (each read is shorter than the
+    corridor's 8,192), so each round runs K4/K4-tb's plain versions, and
+    the consensus equals delly_tpu's msa_batch."""
+    rng = random.Random(9)
+    items = []
+    for _ in range(2):
+        base = _rand_seq(rng, 4400)
+        seqs = []
+        for _ in range(3):
+            s = "".join(ch for ch in base if rng.random() > 0.03)
+            seqs.append(s[:rng.randint(4150, len(s))])
+        items.append((seqs, jmsa.distance_matrix(seqs)))
+    want = jmsa.msa_batch([(s, d.copy()) for s, d in items], 2)
+    launches = []
+    orig = wide.gotoh_wide_forward
+
+    def counted(*args):
+        launches.append(args[0].shape)
+        return orig(*args)
+
+    dispatch.reset()
+    wide.gotoh_wide_forward = counted
+    try:
+        got = tmsa.msa_batch([(s, d.copy()) for s, d in items], 2)
+    finally:
+        wide.gotoh_wide_forward = orig
+    assert got == want
+    assert dispatch.snapshot()["host_routes"] == 0
+    assert len(launches) == 2          # one per round, both items in it
+
+
+def test_host_routes(torch_cpu):
+    """Past the widest bucket, lowercase letters, and a count product
+    past the gate each take the host DP as one host route, in place;
+    beside them a wide merge runs on the wide route."""
+    rng = random.Random(4)
+    wide_ok = (_block(rng, _rand_seq(rng, 4200), 1),
+               _block(rng, _rand_seq(rng, 350), 2))
+    jobs = [("A" * (wide.MAX_WIDE + 1), "ACGT"),
+            (_rand_seq(rng, 4200).lower(), _rand_seq(rng, 60)),
+            wide_ok,
+            (np.repeat(np.frombuffer(_rand_seq(rng, 4100).encode(),
+                                     np.uint8)[None], 400, 0),
+             np.repeat(np.frombuffer(_rand_seq(rng, 20).encode(),
+                                     np.uint8)[None], 400, 0))]
+    for k, (a1, a2) in enumerate(jobs[:2] + jobs[3:]):
+        assert not wide.wide_eligible(*(gotoh_cuda.to_align(x)
+                                        for x in (a1, a2))), k
+    for k, job in enumerate(jobs):
+        dispatch.reset()
+        got = gotoh_cuda.gotoh_batch([job], ac=(True, True))
+        assert dispatch.snapshot()["host_routes"] == (k != 2)
+        hs, hm = gotoh(*job, ac=(True, True))
+        assert got[0][0] == hs
+        np.testing.assert_array_equal(got[0][1], hm)
+
+
+@pytest.fixture
+def mesh3(torch_cpu):  # noqa: F811
+    from delly_tpu_torch.parallel.mesh import make_mesh
+
+    dispatch.reset()
+    yield make_mesh(3, devices=[torch.device("cpu")] * 3)
+    dispatch.reset()
+
+
+def test_wide_split_over_mesh(mesh3):
+    """Four wide merges (60-90 DP rows against 4,100-4,200 columns) at a
+    mesh of 3 CPU devices: the same bytes as without a mesh, and every
+    position ran a chunk of the wide engine."""
+    rng = random.Random(21)
+    jobs = []
+    for _ in range(4):
+        base = _rand_seq(rng, rng.randint(4100, 4200))
+        lo = rng.randint(0, 4000)
+        jobs.append((_block(rng, base[lo:lo + rng.randint(60, 90)], 2),
+                     _block(rng, base, 1)))
+    want = gotoh_cuda.gotoh_batch(jobs, ac=(True, True))
+    assert dispatch.device_snapshot() == {}
+    with dispatch.use_mesh(mesh3):
+        got = gotoh_cuda.gotoh_batch(jobs, ac=(True, True))
+    hits = dispatch.device_snapshot()
+    assert sorted(hits) == [0, 1, 2]
+    assert all(hits[p].get("gotoh_wide", 0) > 0 for p in range(3)), hits
+    assert dispatch.snapshot()["host_routes"] == 0
+    for (s1, m1), (s2, m2) in zip(want, got):
+        assert s1 == s2 and np.array_equal(m1, m2)
+
+
+@pytest.mark.parametrize("budget,want", [
+    (1 << 40, [(0, 5)]),
+    (2 * 4100 * 4208, [(0, 2), (2, 4), (4, 5)]),
+    (1, [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5)]),
+])
+def test_chunks_under_budget(budget, want):
+    """Launches in job order, each G x M x N bytes of tiles within the
+    budget (a merge alone always runs), N a multiple of 16."""
+    ms = [4100, 4097, 300, 4100, 16384]
+    ns = [4200, 4208, 4100, 4099, 16384]
+    assert wide.chunks(ms, ns, budget) == want
+    for lo, hi in want:
+        M, N = wide.tile_shape(ms[lo:hi], ns[lo:hi])
+        assert N % 16 == 0 and N >= max(ns[lo:hi]) and M == max(ms[lo:hi])
+        assert hi - lo == 1 or (hi - lo) * M * N <= budget
+
+
+@pytest.mark.parametrize("N", [16, 64, 128, 4112, 8192, 12208, 16384])
+def test_tb_geometry(N):
+    """K4-tb's window as the launch takes it: columns a multiple of 16
+    and at most N (the window's 16-byte loads stay in the tile's rows),
+    rows x columns within the window's bytes, which fit shared memory;
+    at the wide buckets 128 x 128."""
+    rows, cols, smem = wide.tb_geometry(N)
+    assert cols % 16 == 0 and 16 <= cols <= N and rows >= 1
+    assert smem == rows * cols <= wide.TB_WINDOW_BYTES <= gotoh_cuda.SMEM_MAX
+    if N >= 8192:
+        assert (rows, cols) == (128, 128)
+
+
+def test_wrapper_checks():
+    """The wrappers refuse tiles K4 does not take (columns not a multiple
+    of 16, or wider than 16,384) and a wrong dtype."""
+    ok = [torch.zeros(s, dtype=torch.int32)
+          for s in ((1, 5, 6), (1, 5, 32), (1, 32), (1,), (1,))]
+    with pytest.raises(ValueError):
+        wide.gotoh_wide_forward(ok[0], ok[1][:, :, :20].contiguous(),
+                                ok[2][:, :20].contiguous(), *ok[3:], True,
+                                True, -10, -1)
+    with pytest.raises(ValueError):
+        wide.gotoh_wide_traceback(torch.zeros((1, 5, 16400),
+                                              dtype=torch.uint8), *ok[3:])
+    with pytest.raises(TypeError):
+        wide.gotoh_wide_forward(ok[0].long(), *ok[1:], True, True, -10, -1)
