@@ -11,10 +11,11 @@
    process per
    source, all started together, printing the build seconds and the
    -Xptxas -v register/spill lines; beside them K3 once more with
-   K3_COUNT_INTERIOR into a cubin, and the probes of PROBE_SRC below.
+   K3_COUNT_INTERIOR and K4 with K4_COUNT_SLOPE into cubins, and the
+   probes of PROBE_SRC below.
    Counts, in cuobjdump -sass, the integer instructions per Myers word
    of K1's column loop (thread per pair) and step loop (lane groups), of
-   K2's row loop per cell, of K3's interior
+   K2's and K4's row loops per cell, of K3's interior
    row loop per cell and per thread and row, beside the operations per
    unit that each bound counts, and of X1's lane groups' step loop per
    64-bit word (slope over 4 to 8 words a lane) and per step, beside the
@@ -138,7 +139,10 @@
    line's K3 and K3-tb numbers, with K3-tb's chain floor (the longest
    walk's steps x the chase probe's step). Then every K4/K4-tb launch
    of the wide runs again from its recorded inputs (equal to what the
-   run got), each timed through the wrappers, and the merges of both
+   run got), each timed through the wrappers, with K4's strips printed
+   (merges G, strips P of W columns, G x P blocks; at 24 DELs every
+   launch at least 6 strips a merge and no more blocks than SMs), and
+   the merges of both
    runs at once through the plain versions on the card (exact): the
    kernels line's K4 and K4-tb numbers from the 24-DEL run, with the
    bounds per merge on one SM and on the card and K4-tb's chain floor.
@@ -409,8 +413,9 @@ def bound(nbytes: float, ops: float) -> dict:
 
 def phase_build(details: dict) -> tuple:
     """Builds every kernel and, beside them, K3 with K3_COUNT_INTERIOR
-    into a cubin for its SASS count and PROBE_SRC into a library.
-    Returns (the cubin's path, the probe library's path)."""
+    and K4 with K4_COUNT_SLOPE into cubins for their SASS counts and
+    PROBE_SRC into a library. Returns (K3's cubin's path, the probe
+    library's path)."""
     from delly_tpu_torch import native
     from delly_tpu_torch.ops import _build
 
@@ -430,6 +435,12 @@ def phase_build(details: dict) -> tuple:
          "-std=c++17", "-O3", "-cubin", "-DK3_COUNT_INTERIOR", "-o", cubin,
          os.path.join(_build.CSRC, "gotoh_banded.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    k4_cubin = os.path.join(_build.BUILD_DIR, "k4_count_slope.cubin")
+    k4_count = subprocess.Popen(
+        [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-cubin", "-DK4_COUNT_SLOPE", "-o", k4_cubin,
+         os.path.join(_build.CSRC, "gotoh_wide.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     probe_src = os.path.join(_build.BUILD_DIR, "probes.cu")
     with open(probe_src, "w") as fh:
         fh.write(PROBE_SRC)
@@ -439,13 +450,16 @@ def phase_build(details: dict) -> tuple:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     secs = _build.build()
     log, _ = count.communicate()
+    k4_log, _ = k4_count.communicate()
     probe_log, _ = probe.communicate()
     wall = time.time() - t0
     t.join()
     need(count.returncode == 0, f"K3 count build failed: {log[-1500:]}")
+    need(k4_count.returncode == 0,
+         f"K4 count build failed: {k4_log[-1500:]}")
     need(probe.returncode == 0, f"probe build failed: {probe_log[-1500:]}")
     need(host.get("lib") is not None, "native host library did not build")
-    print(f"build: {wall:.1f}s wall for {len(secs) + 2} nvcc processes "
+    print(f"build: {wall:.1f}s wall for {len(secs) + 3} nvcc processes "
           f"({', '.join(f'{k} {v:.1f}s' for k, v in secs.items())}); "
           f"host library ready after {host['s']:.1f}s")
     ptxas = {}
@@ -605,7 +619,9 @@ def kernel_sass(details, k3_count: str) -> dict:
     counted by the loop's byte loads: one letter lookup per column, and
     the target byte and its lookup per step),
     K2 per cell and per lane and row (row loop, slope over
-    columns per lane between the warp-per-merge instantiations),
+    columns per lane between the warp-per-merge instantiations), K4 the
+    same over its warp row loop at 4 and 8 columns a lane (the cubin
+    built with K4_COUNT_SLOPE),
     K3 per cell and per thread and row (the interior path alone, from the
     build `k3_count` with K3_COUNT_INTERIOR; slope over 4 and 8 slots per
     thread at 256 threads), and X1 per 64-bit word and row of a and per
@@ -631,6 +647,15 @@ def kernel_sass(details, k3_count: str) -> dict:
     k3i = sass_loops(k3_count, "banded_kernel", "BAR")
     k3_cell = slope(k3i, (4, 256), (8, 256), lambda t: t[0])
     k3_row = k3i[(4, 256)][1] - 4 * k3_cell
+    # K4's warp row loop at 4 columns a lane (the launch's layout) and 8
+    # (instantiated only in the K4_COUNT_SLOPE cubin, for the slope)
+    k4 = sass_loops(os.path.join(_build.BUILD_DIR, "k4_count_slope.cubin"),
+                    "gotoh_wide_kernel", must="SHFL",
+                    avoid=("BAR", "ENDCOLLECTIVE"))
+    need((4,) in k4 and (8,) in k4, f"SASS: K4's row loops at 4 and 8 "
+         f"columns a lane not found ({k4})")
+    k4_cell = slope(k4, (4,), (8,), lambda t: t[0])
+    k4_row = k4[(4,)][1] - 4 * k4_cell
     # X1's lane groups: two steps an iteration, K words a lane
     x1 = x1_step_loops(_build._lib_path("lcs"))
     need(4 in x1 and 8 in x1, f"SASS: X1's step loops at K = 4 and 8 "
@@ -651,6 +676,12 @@ def kernel_sass(details, k3_count: str) -> dict:
           f"counts {GOTOH_OPS_PER_CELL}. Row loops, (columns per lane, warps "
           f"per merge): " + ", ".join(f"{k} {a}" for k, (_n, a)
                                       in sorted(k2.items())))
+    print(f"K4 SASS: {k4_cell:g} integer instructions per cell and "
+          f"{k4_row:g} per lane and row (the warp's row loop, slope over 4 "
+          f"to 8 columns a lane); at the launch's 4 columns a lane "
+          f"{k4[(4,)][1] / 4:g} per cell with the row's share; the bound "
+          f"counts {GOTOH_OPS_PER_CELL}. Row loops: " + ", ".join(
+              f"{k[0]} columns {a}" for k, (_n, a) in sorted(k4.items())))
     print("K3 SASS interior row loop per thread: " + ", ".join(
         f"{c} slots x {t} threads {a} integer" for (c, t), (_n, a)
         in sorted(k3i.items())) + f"; {k3_cell:g} integer instructions per "
@@ -672,6 +703,9 @@ def kernel_sass(details, k3_count: str) -> dict:
         "k1_lanes_integer_per_word": k1l_word,
         "k2_row_loop": {str(k): v for k, v in k2.items()},
         "k2_integer_per_cell": k2_cell, "k2_integer_per_lane_row": k2_row,
+        "k4_row_loop": {str(k): v for k, v in k4.items()},
+        "k4_integer_per_cell": k4_cell, "k4_integer_per_lane_row": k4_row,
+        "k4_integer_per_cell_at_4": k4[(4,)][1] / 4,
         "k3_row_loop_both_paths": {f"{c}x{t}": v
                                    for (c, t), v in k3.items()},
         "k3_row_loop_interior": {f"{c}x{t}": v for (c, t), v in k3i.items()},
@@ -1680,7 +1714,8 @@ def check_wide(dev, records, details, step_ns) -> tuple:
     written per cell) and K4-tb's chain floor (the longest walk x
     `step_ns`, the chase probe's step); per merge, ms per launch over
     its merges beside one SM's and the whole card's operations bound for
-    the run's mean merge."""
+    the run's mean merge; K4's strips (P, W) and blocks (G x P) per
+    launch from strip_geometry, as the wrapper takes them."""
     import torch
     import torch.nn.functional as F
 
@@ -1688,14 +1723,24 @@ def check_wide(dev, records, details, step_ns) -> tuple:
         gotoh_forward_plain, gotoh_traceback_plain,
     )
     from delly_tpu_torch.ops.gotoh_wide_cuda import (
-        gotoh_wide_forward, gotoh_wide_traceback,
+        gotoh_wide_forward, gotoh_wide_traceback, strip_geometry,
     )
 
     recs = [(label, r) for label, rs in records.items() for r in rs]
-    outs, alone, tb_alone = [], [], []
+    outs, alone, tb_alone, geo = [], [], [], []
+    sms = details["int32_ops_per_s"]["sms"]
     for i, (label, r) in enumerate(recs):
         args = r["args"]
         ml, nl = args[3], args[4]
+        G, N = args[0].shape[0], args[1].shape[2]
+        P, W, C = strip_geometry(G, N, sms)
+        geo.append((P, W, G * P))
+        print(f"K4 launch {i} ({label}): G {G} merges of {args[0].shape[1]} "
+              f"x {N}, P {P} strips of W {W} columns ({C} chunk(s) each), "
+              f"{G * P} blocks on {sms} SMs")
+        if label.endswith("24 DELs"):
+            need(P >= 6 and G * P <= sms,
+                 f"{label} launch {i}: {P} strips a merge, {G * P} blocks")
         best, bits = gotoh_wide_forward(*args)
         codes, lens = gotoh_wide_traceback(bits, ml, nl)
         same = torch.equal(best, r["best"]) and torch.equal(lens, r["lens"])
@@ -1760,6 +1805,9 @@ def check_wide(dev, records, details, step_ns) -> tuple:
                   for a in args]
         run_ms = [alone[i] for i in idx]
         tb_ms = [tb_alone[i] for i in idx]
+        strips = {"strips": [geo[i][0] for i in idx],
+                  "strip_width": [geo[i][1] for i in idx],
+                  "blocks": [geo[i][2] for i in idx]}
         per_merge = {
             "ms_per_merge": sum(run_ms) / merges,
             "one_sm_bound_ms": cells / merges * GOTOH_OPS_PER_CELL / sm_rate
@@ -1778,7 +1826,7 @@ def check_wide(dev, records, details, step_ns) -> tuple:
         per_run[label] = (
             {"ms": sum(run_ms), "plain_ms": p_ms,
              "plain_merges": g0, "shapes": desc, "launch_ms_alone": run_ms,
-             "cells": cells, **per_merge,
+             "cells": cells, **per_merge, **strips,
              **bound(in_bytes + cells + 4 * merges,
                      cells * GOTOH_OPS_PER_CELL)},
             # K4-tb's step counted as K2-tb's (the same step table)
@@ -2849,7 +2897,7 @@ def main() -> int:
                  "chain_floor", "case_", "device_ms", "lr_", "asm_",
                  "deepgeno_", "word_steps", "lcs_step", "ns_per_step",
                  "ms_per_merge", "one_sm_bound", "card_bound",
-                 "plain_merges"))}})
+                 "plain_merges", "strip", "blocks"))}})
     details["kernels"] = kernels
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as fh:

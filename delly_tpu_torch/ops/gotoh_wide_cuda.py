@@ -18,10 +18,23 @@ The plain versions are K2's (``gotoh_forward_plain``,
 wrapper launches its kernel on CUDA tensors (or raises) and runs the
 plain version on CPU tensors.
 
+K4 runs a merge as column strips (``strip_geometry``): a launch of G
+merges on a card of S SMs gives each merge P ~ S / G blocks (P = 1 from
+G = S on), each holding W columns as C chunks of at most CHUNK_MAX, so
+that the G x P blocks fill the card. A chunk keeps its slice of the
+target profile in shared memory; its warps run as a wavefront, each
+handing every DP row's carry (S, R and the H-opened flag at its last
+column) to the next warp through shared memory, and the chunk's last warp
+to the next chunk through a ring of row records in global memory, point
+to point, never a barrier over the strips; with P > 1 the launch is
+cooperative, so every block is on the card at once. The geometry depends
+only on G, N and S and changes no byte.
+
 Bounds on the H100: K4 counts K2's 42 integer operations per cell and
-writes one byte per cell, so it is bound by operations; it runs one
-block per merge. K4-tb is a chain of dependent byte loads per merge
-(latency), one warp per merge.
+writes one byte per cell, so it is bound by operations; a warp's DP row
+is a chain of latencies (a shuffle scan, the carry) beside its cells,
+and a launch adds the wavefront's fill. K4-tb is a chain of dependent
+byte loads per merge (latency), one warp per merge.
 """
 
 from __future__ import annotations
@@ -43,6 +56,15 @@ BUCKETS = (8192, 16384)     # widest dimension of a merge, by launch group
 MAX_WIDE = BUCKETS[-1]
 TILE_BUDGET = 1 << 31       # bytes of direction bits in one launch
 TB_WINDOW_BYTES = 16_384    # K4-tb's window
+CHUNK_MAX = 4096            # K4's widest chunk: 1,024 threads x 4 columns
+# K4's narrowest strip: 8 warps of 4 columns a lane, so that an SM's four
+# schedulers have two warps each. Narrower strips give a merge more SMs
+# but little more speed, since a warp's row is a chain of latencies
+# (shuffle scan, carry) that more SMs do not shorten: on the H100 one
+# merge of 16,384 columns took 10.98 ms at 512 columns a strip, 11.92 at
+# 1,024 and 14.65 at 2,048; three of ~12,200 8.87, 9.73 and 12.44 ms
+# (PERF.md, PR 14)
+STRIP_FLOOR = 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -90,6 +112,21 @@ def tb_geometry(N: int) -> tuple:
     return rows, cols, rows * cols
 
 
+def strip_geometry(G: int, N: int, sms: int) -> tuple:
+    """K4's strips for a launch of G merges of N columns on a card of
+    `sms` SMs: (P blocks per merge, W columns per block, C chunks per
+    block). P = min(sms // G, N // STRIP_FLOOR), at least 1, so G x P <=
+    sms while G < sms and P = 1 from G = sms on; the merge's columns are
+    Q = P x C chunks of W / C columns (a multiple of 16, at most
+    CHUNK_MAX), chunk q on block q mod P, and every chunk starts inside
+    the tile. W is a multiple of 16, at least STRIP_FLOOR where N is,
+    and P x W >= N."""
+    P = max(1, min(sms // max(G, 1), N // STRIP_FLOOR))
+    C = -(-N // (P * CHUNK_MAX))
+    wc = -(-N // (16 * P * C)) * 16
+    return P, C * wc, C
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -98,7 +135,8 @@ def _lib(name: str):
     lib = _build.load(name)
     if name == "gotoh_wide" and lib.gotoh_wide_launch.argtypes is None:
         lib.gotoh_wide_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                          _I, _I, _I, _P, _P, _P]
+                                          _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                          _P]
         lib.gotoh_wide_launch.restype = _I
     if name == "gotoh_wide_tb" and lib.gotoh_wide_tb_launch.argtypes is None:
         lib.gotoh_wide_tb_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
@@ -117,7 +155,8 @@ def gotoh_wide_forward(prof, wc2, d2, mlen, nlen, hfree: bool, vfree: bool,
                        go: int, ge: int):
     """K4: (best (G,) int32, bits (G, M, N) uint8) for prof (G, M, 6),
     wc2 (G, 5, N), d2 (G, N), mlen/nlen (G,), all int32, with 1 <= mlen
-    <= M and 1 <= nlen <= N."""
+    <= M and 1 <= nlen <= N; on the card in ``strip_geometry``'s strips
+    for the SMs of the tensors' device."""
     G, M, N = prof.shape[0], prof.shape[1], wc2.shape[2]
     _check_tile("gotoh_wide", M, N)
     i32 = torch.int32
@@ -137,10 +176,17 @@ def gotoh_wide_forward(prof, wc2, d2, mlen, nlen, hfree: bool, vfree: bool,
     if any(x.data_ptr() % 16 for x in (prof, wc2, d2)):
         raise ValueError("gotoh_wide: prof, wc2 and d2 must be 16-byte "
                          "aligned")
+    sms = torch.cuda.get_device_properties(prof.device).multi_processor_count
+    P, W, C = strip_geometry(G, N, sms)
+    Q = P * C
+    # the carry rings: a record of 4 int32 per DP row and chunk boundary
+    recs = torch.empty((G, Q - 1, M, 4) if Q > 1 else (4,),
+                       dtype=torch.int32, device=prof.device)
     rc = _lib("gotoh_wide").gotoh_wide_launch(
         prof.data_ptr(), wc2.data_ptr(), d2.data_ptr(), mlen.data_ptr(),
-        nlen.data_ptr(), G, M, N, int(hfree), int(vfree), int(go), int(ge),
-        best.data_ptr(), bits.data_ptr(), _build.stream_ptr(prof.device))
+        nlen.data_ptr(), G, M, N, P, Q, W // C, int(hfree), int(vfree),
+        int(go), int(ge), best.data_ptr(), bits.data_ptr(), recs.data_ptr(),
+        _build.stream_ptr(prof.device))
     _build.check(rc, "gotoh_wide")
     dispatch.count("gotoh_wide")
     return best, bits

@@ -305,6 +305,15 @@ WIDE_CASES = {
     "16384": (16384, [(16384, 16000), (12300, 12100), (700, 16384)]),
     # walks along row 0 or column 0 and thin tiles
     "edges": (16384, [(12000, 1), (1, 12000), (5000, 16), (16, 5000)]),
+    # K4's strips (strip_geometry): one merge, the most strips a merge
+    "one 16384": (16384, [(16384, 16384)]),
+    # 3 and 14 merges of ~12,200 (14 within the 2 GiB budget)
+    "3 x 12200": (16384, [(12200, 12150), (12100, 12208), (11950, 12000)]),
+    "14 x 12200": (16384, [(12200 - 20 * i, 12180 - 13 * i)
+                           for i in range(14)]),
+    # more thin merges than the card has SMs: one strip a merge, walked
+    # as chunks
+    "140 thin": (16384, [(60 + i, 16384 - 7 * i) for i in range(140)]),
 }
 
 
@@ -312,10 +321,27 @@ WIDE_CASES = {
 @pytest.mark.parametrize("ac", ACS)
 @pytest.mark.parametrize("kind", list(WIDE_CASES))
 def test_gotoh_wide_kernels_match_plain(card, ac, kind):
-    """K4/K4-tb at both wide buckets (blocks of 512 and 1,024 threads),
-    jagged lengths, and mlen or nlen of 1 with thin tiles (one warp)."""
+    """K4/K4-tb at both wide buckets, jagged lengths, and mlen or nlen of
+    1 with thin tiles; K4's strips at the most strips a merge (one merge
+    of 16,384 x 16,384), at 3 and 14 merges (fewer strips), and at one
+    strip a merge (140 thin merges, more than the SMs)."""
     W, sizes = WIDE_CASES[kind]
     _assert_wide(card, *_wide_case(len(sizes) + W, W, sizes), ac)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac", ACS)
+def test_gotoh_wide_strip_edges_match_plain(card, ac):
+    """nlen on the edges of K4's chunks, as strip_geometry cuts five
+    merges of up to 12,200 columns on this card: on a chunk's last
+    column, on the next one's first, and on later chunks' edges."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    P, W, C = gotoh_wide_cuda.strip_geometry(5, 12208, sms)
+    wc = W // C
+    assert P > 1
+    sizes = [(3000, 12200), (3000, wc), (3000, wc + 1), (2500, 2 * wc),
+             (2000, 3 * wc + 1)]
+    _assert_wide(card, *_wide_case(wc, 16384, sizes), ac)
 
 
 @pytest.mark.cuda

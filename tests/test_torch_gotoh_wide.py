@@ -24,6 +24,7 @@ from delly_tpu.ops.gotoh import DnaScore, gotoh
 from delly_tpu.ops.gotoh_device import gotoh_device
 from delly_tpu_torch.ops import gotoh_cuda, gotoh_wide_cuda as wide
 from delly_tpu_torch.ops.gotoh import DnaScore as TDnaScore
+from delly_tpu_torch.ops.gotoh import create_alignment_codes
 from delly_tpu_torch.parallel import dispatch
 from torch_card import torch_cpu  # noqa: F401
 
@@ -232,3 +233,132 @@ def test_wrapper_checks():
                                               dtype=torch.uint8), *ok[3:])
     with pytest.raises(TypeError):
         wide.gotoh_wide_forward(ok[0].long(), *ok[1:], True, True, -10, -1)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("N", [4112, 8192, 12208, 16384])
+@pytest.mark.parametrize("G", [1, 2, 3, 12, 14, 131, 132, 400])
+def test_strip_geometry(G, N, sms):
+    """K4's strips: G x P blocks fit the SMs while G < sms, P = 1 from G
+    = sms on; W a multiple of 16, at least STRIP_FLOOR; the P strips cover
+    N; each block's C chunks at most CHUNK_MAX columns, a multiple of 16,
+    and every one of the P x C chunks starts inside the tile."""
+    P, W, C = wide.strip_geometry(G, N, sms)
+    assert P >= 1 and C >= 1
+    if G < sms:
+        assert G * P <= sms
+    else:
+        assert P == 1
+    assert W % 16 == 0 and W >= wide.STRIP_FLOOR
+    assert P * W >= N
+    wc = W // C
+    assert wc * C == W and wc % 16 == 0 and wc <= wide.CHUNK_MAX
+    assert (P * C - 1) * wc < N
+
+
+def _strip_model(prof, wc2, d2, ml, nl, hfree, vfree, go, ge, width):
+    """K4's strip hand-off in numpy: each merge's DP run strip by strip
+    (`width` columns), a strip seeing of the strip to its left only its
+    row records (S and R at its last column, and whether H opens at the
+    next column), strip 0 taking S[r][0] and R[0] = S[r][0] and opening H
+    at column 1; strips wholly past nlen are not run. Returns (best (G,),
+    bits (G, M, N)) as gotoh_forward_plain does."""
+    G, M, _ = prof.shape
+    N = wc2.shape[2]
+    ninf = -1_000_000
+    best = np.zeros(G, np.int64)
+    bits = np.zeros((G, M, N), np.uint8)
+    for g in range(G):
+        m, n = int(ml[g]), int(nl[g])
+        rec = None                       # the records of the strip to the left
+        for cs in range(0, N, width):
+            if cs >= n:
+                break
+            cols = np.arange(cs + 1, min(cs + width, N) + 1)   # DP columns
+            k = np.arange(len(cols))
+            w5 = wc2[g][:, cols - 1].astype(np.int64)
+            dd = d2[g][cols - 1].astype(np.int64)
+            vf = vfree & (cols == n)
+            vo, ve = np.where(vf, 0, go + ge), np.where(vf, 0, ge)
+            S = np.zeros(len(cols), np.int64) if hfree else go + cols * ge
+            V = np.full(len(cols), ninf, np.int64)
+            diag = 0 if cs == 0 or hfree else go + cs * ge     # S[0][cs]
+            out = []
+            for r in range(1, m + 1):
+                O, E = (0, 0) if hfree and r == m else (go + ge, ge)
+                p = prof[g, r - 1].astype(np.int64)
+                num = p[:5] @ w5
+                q = np.abs(num) // np.maximum(p[5] * dd, 1)
+                sc = np.where(num < 0, -q, q)
+                if cs == 0:
+                    s_in = r_in = 0 if vfree else go + r * ge
+                    hop_in = 1
+                else:
+                    s_in, r_in, hop_in = rec[r - 1]
+                Vn = np.maximum(S + vo, V + ve)
+                t = np.maximum(np.concatenate([[diag], S[:-1]]) + sc, Vn)
+                # R[k] = max(R_in + (k + 1) E, max_{k' <= k} t[k'] + (k - k') E)
+                R = k * E + np.maximum(r_in + E,
+                                       np.maximum.accumulate(t - k * E))
+                Rp = np.concatenate([[r_in], R[:-1]])     # R coming in
+                H = Rp + O
+                Sn = np.maximum(t, H)
+                hop = np.concatenate([[hop_in], t[:-1] > Rp[:-1] + E])
+                bits[g, r - 1, cols - 1] = (
+                    (Sn == H) | (Sn == Vn) << 1 | hop.astype(np.int64) << 2
+                    | (Vn != V + ve) << 3)
+                out.append((int(Sn[-1]), int(R[-1]),
+                            int(t[-1] > Rp[-1] + E)))
+                if r == m and cs < n <= cols[-1]:
+                    best[g] = Sn[n - cs - 1]
+                S, V, diag = Sn, Vn, s_in
+            rec = out
+    return best, bits
+
+
+def _strip_jobs(seed, width):
+    """Merges in one 60 x 200 tile (N = 208) whose nlen falls on a strip's
+    first column, on a strip's last column, with whole strips past it
+    (70 and 17 columns), and at the tile's edge."""
+    rng = random.Random(seed)
+    sizes = [(60, 200), (50, 2 * width + 1), (60, 3 * width), (33, 70),
+             (9, 17)]
+    jobs = []
+    for m, n in sizes:
+        base = _rand_seq(rng, max(m, n))
+        jobs.append((_block(rng, base[:m], rng.randint(1, 3)),
+                     _block(rng, base[:n], rng.randint(1, 3))))
+    return jobs
+
+
+@pytest.mark.parametrize("width", [16, 32, 48])
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("ac", ACS)
+def test_strip_model_matches_plain(ac, scheme, width):
+    """The strip hand-off (_strip_model) gives best and the bits of rows <
+    mlen and columns < nlen of gotoh_forward_plain, for all four end-gap
+    configurations and both schemes; at the MSA's configuration its walk
+    also gives delly_tpu's device Gotoh (ops/gotoh_device.gotoh_device)."""
+    jobs = _strip_jobs(width + 7 * len(ac) + scheme[0], width)
+    M, N = wide.tile_shape([a.shape[1] for a, _ in jobs],
+                           [b.shape[1] for _, b in jobs])
+    tsc = TDnaScore(*scheme)
+    packed = gotoh_cuda.pack_bucket(jobs, M, tsc, N)
+    go, ge = int(tsc.go), int(tsc.ge)
+    best, bits = _strip_model(*packed, ac[0], ac[1], go, ge, width)
+    want_best, want_bits = gotoh_cuda.gotoh_forward_plain(
+        *(torch.from_numpy(x) for x in packed), ac[0], ac[1], go, ge)
+    np.testing.assert_array_equal(best, want_best.numpy())
+    for g, (m, n) in enumerate(zip(packed[3], packed[4])):
+        np.testing.assert_array_equal(bits[g, :m, :n],
+                                      want_bits[g, :m, :n].numpy())
+    if ac == (True, True) and scheme == SCHEMES[0]:
+        codes, lens = gotoh_cuda.gotoh_traceback_plain(
+            torch.from_numpy(bits), torch.from_numpy(packed[3]),
+            torch.from_numpy(packed[4]))
+        for g, (a1, a2) in enumerate(jobs):
+            fwd = codes[g, :int(lens[g])].numpy()[::-1].astype(np.int64)
+            ws, wm = gotoh_device(a1, a2, ac=ac, sc=DnaScore(*scheme))
+            assert int(best[g]) == ws
+            np.testing.assert_array_equal(
+                create_alignment_codes(fwd, a1, a2), wm)
