@@ -17,9 +17,11 @@
    of K1's column loop (thread per pair) and step loop (lane groups), of
    K2's and K4's row loops per cell, of K3's interior
    row loop per cell and per thread and row, beside the operations per
-   unit that each bound counts, and of X1's lane groups' step loop per
+   unit that each bound counts, of X1's lane groups' step loop per
    64-bit word (slope over 4 to 8 words a lane) and per step, beside the
-   operations its bound counts. Times the probes: ns per dependent
+   operations its bound counts, and of K4-tb's step loops per step,
+   failing if one holds a uniform-datapath instruction. Times the
+   probes: ns per dependent
    shared-memory byte load (one K3-tb walk step's floor), ns per
    dependent X1 wavefront step (a 64-bit add with the carry in and out
    and a shuffle: X1's chain floor per step), and ns per
@@ -145,7 +147,8 @@
    the merges of both
    runs at once through the plain versions on the card (exact): the
    kernels line's K4 and K4-tb numbers from the 24-DEL run, with the
-   bounds per merge on one SM and on the card and K4-tb's chain floor.
+   bounds per merge on one SM and on the card, K4-tb's chain floor and
+   its ns a step of each launch's longest walk beside the chase probe's.
    The plain versions' times of
    this phase are taken with the CPU runs going. Last, checks that every
    card output equals its CPU run's apart from ##fileDate (BCF decoded,
@@ -576,6 +579,29 @@ def x1_step_loops(path: str) -> dict:
     return steps
 
 
+def tb_step_loops(path: str) -> list:
+    """K4-tb's step loops (csrc/gotoh_wide_tb.cu): the innermost loops
+    that read a tile's bytes (LDS.U8), each with its steps (those
+    loads), instructions, integer instructions and instructions on the
+    uniform datapath (U* opcodes), which a walk's steps must not take:
+    a one-lane walk there ran 10-20% slower a step (K2-tb)."""
+    out = []
+    for _name, ins in sass_functions(path, "gotoh_wide_tb_kernel"):
+        for seg in backward_loops(ins):
+            nested = any(_back_target(a, o, r) is not None
+                         for a, o, r, _f in seg[:-1])
+            steps = sum(f == "LDS.U8" for _a, _o, _r, f in seg)
+            if nested or not steps:
+                continue
+            ops = [o for _a, o, _r, _f in seg]
+            out.append({"steps": steps, "instructions": len(seg),
+                        "integer": sum(not o.startswith(NON_ALU)
+                                       for o in ops),
+                        "uniform": sum(bool(re.match(r"U[A-Z]", o))
+                                       for o in ops)})
+    return out
+
+
 def sass_loops(path: str, kernel: str, must: str | None = None,
                avoid: tuple = (), count: str | None = None) -> dict:
     """{template arguments (() for a kernel that is no template):
@@ -624,9 +650,11 @@ def kernel_sass(details, k3_count: str) -> dict:
     built with K4_COUNT_SLOPE),
     K3 per cell and per thread and row (the interior path alone, from the
     build `k3_count` with K3_COUNT_INTERIOR; slope over 4 and 8 slots per
-    thread at 256 threads), and X1 per 64-bit word and row of a and per
-    step (its lane groups' step loops, x1_step_loops). Returns K3's
-    interior row loops by (slots, threads): integer instructions."""
+    thread at 256 threads), X1 per 64-bit word and row of a and per
+    step (its lane groups' step loops, x1_step_loops), and K4-tb's step
+    loops (tb_step_loops), which must hold no uniform-datapath
+    instruction. Returns K3's interior row loops by (slots, threads):
+    integer instructions."""
     from delly_tpu_torch.ops import _build
 
     k1 = sass_loops(_build._lib_path("myers"), "myers_thread_kernel",
@@ -656,6 +684,10 @@ def kernel_sass(details, k3_count: str) -> dict:
          f"columns a lane not found ({k4})")
     k4_cell = slope(k4, (4,), (8,), lambda t: t[0])
     k4_row = k4[(4,)][1] - 4 * k4_cell
+    # K4-tb's step loops: off the uniform datapath
+    tbl = tb_step_loops(_build._lib_path("gotoh_wide_tb"))
+    need(tbl and all(lp["uniform"] == 0 for lp in tbl),
+         f"SASS: K4-tb's step loops {tbl}: none, or on the uniform datapath")
     # X1's lane groups: two steps an iteration, K words a lane
     x1 = x1_step_loops(_build._lib_path("lcs"))
     need(4 in x1 and 8 in x1, f"SASS: X1's step loops at K = 4 and 8 "
@@ -682,6 +714,11 @@ def kernel_sass(details, k3_count: str) -> dict:
           f"{k4[(4,)][1] / 4:g} per cell with the row's share; the bound "
           f"counts {GOTOH_OPS_PER_CELL}. Row loops: " + ", ".join(
               f"{k[0]} columns {a}" for k, (_n, a) in sorted(k4.items())))
+    print("K4-tb SASS step loops (steps: instructions, integer, uniform "
+          "datapath): " + ", ".join(
+              f"{lp['steps']}: {lp['instructions']}, {lp['integer']}, "
+              f"{lp['uniform']}" for lp in tbl) + "; integer a step "
+          + ", ".join(f"{lp['integer'] / lp['steps']:g}" for lp in tbl))
     print("K3 SASS interior row loop per thread: " + ", ".join(
         f"{c} slots x {t} threads {a} integer" for (c, t), (_n, a)
         in sorted(k3i.items())) + f"; {k3_cell:g} integer instructions per "
@@ -706,6 +743,7 @@ def kernel_sass(details, k3_count: str) -> dict:
         "k4_row_loop": {str(k): v for k, v in k4.items()},
         "k4_integer_per_cell": k4_cell, "k4_integer_per_lane_row": k4_row,
         "k4_integer_per_cell_at_4": k4[(4,)][1] / 4,
+        "k4tb_step_loops": tbl,
         "k3_row_loop_both_paths": {f"{c}x{t}": v
                                    for (c, t), v in k3.items()},
         "k3_row_loop_interior": {f"{c}x{t}": v for (c, t), v in k3i.items()},
@@ -1712,7 +1750,8 @@ def check_wide(dev, records, details, step_ns) -> tuple:
     equal the kernels'. The kernels line takes the 24-DEL run's launches,
     summed, with their bounds (K2's 42 operations per cell, a byte
     written per cell) and K4-tb's chain floor (the longest walk x
-    `step_ns`, the chase probe's step); per merge, ms per launch over
+    `step_ns`, the chase probe's step) and its ns a step (each launch's
+    time over its longest walk) beside it; per merge, ms per launch over
     its merges beside one SM's and the whole card's operations bound for
     the run's mean merge; K4's strips (P, W) and blocks (G x P) per
     launch from strip_geometry, as the wrapper takes them."""
@@ -1805,6 +1844,9 @@ def check_wide(dev, records, details, step_ns) -> tuple:
                   for a in args]
         run_ms = [alone[i] for i in idx]
         tb_ms = [tb_alone[i] for i in idx]
+        # K4-tb's ns a step: each launch's time over its longest walk
+        walks = [int(recs[i][1]["lens"].max()) for i in idx]
+        step_ns_tb = [t * 1e6 / w for t, w in zip(tb_ms, walks)]
         strips = {"strips": [geo[i][0] for i in idx],
                   "strip_width": [geo[i][1] for i in idx],
                   "blocks": [geo[i][2] for i in idx]}
@@ -1820,7 +1862,10 @@ def check_wide(dev, records, details, step_ns) -> tuple:
               f"{per_merge['one_sm_bound_ms']:.3f} ms on one SM and "
               f"{per_merge['card_bound_ms']:.4f} ms on the card at the "
               f"operations bound; K4-tb {[round(x, 4) for x in tb_ms]} ms, "
-              f"longest walk {longest} steps, chain floor {floor_ms:.4f} ms")
+              f"{[round(x, 2) for x in step_ns_tb]} ns a step of each "
+              f"launch's longest walk ({walks} steps) beside the chase "
+              f"probe's {step_ns:.2f} ns, longest walk {longest} steps, chain "
+              f"floor {floor_ms:.4f} ms")
         desc = (f"{merges} merges in {len(idx)} launches "
                 f"({', '.join(shapes)}), {label}")
         per_run[label] = (
@@ -1833,7 +1878,9 @@ def check_wide(dev, records, details, step_ns) -> tuple:
             {"ms": sum(tb_ms), "plain_ms": ptb_ms, "plain_merges": g0,
              "shapes": f"{desc}; {steps} walk steps",
              "launch_ms_alone": tb_ms, "longest_walk_steps": longest,
-             "smem_step_ns": step_ns, "chain_floor_ms": floor_ms,
+             "longest_walk_per_launch": walks,
+             "ns_per_step": step_ns_tb, "smem_step_ns": step_ns,
+             "chain_floor_ms": floor_ms,
              **bound(2 * steps + 12 * merges, 8 * steps)})
     details["k4_runs"] = per_run
     k4, k4tb = per_run["sr long-split, 4 reads per DEL, 24 DELs"]

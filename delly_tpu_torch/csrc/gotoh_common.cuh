@@ -1,6 +1,7 @@
 // Device functions shared by the profile Gotoh kernels: the exact
 // profile score of K2 (gotoh.cu) and K4 (gotoh_wide.cu), and the walk's
-// step table of K2-tb (gotoh_tb.cu) and K4-tb (gotoh_wide_tb.cu).
+// step table of K2-tb (gotoh_tb.cu) and K4-tb (gotoh_wide_tb.cu, which
+// also takes its next states bit by bit through step_bits).
 // ops/_build.py hashes this header into the name of every kernel library,
 // so a change here rebuilds them.
 
@@ -38,6 +39,19 @@ __host__ __device__ constexpr uint64_t step_table(int last) {
     t |= (uint64_t)((!v) | (!h) << 1 | next << 2) << (4 * b);
   }
   return t;
+}
+
+// Bit k of step_table(last)'s entries (2 and 3: the next state is H, V)
+// as a 32-bit word for a walk that rotates it right by a cell's byte b:
+// entry b's bit sits at bits b and b + 16, so that rotated right by b
+// (mod 32, a funnel shift) it lands on bit 0 for any byte, entry b & 15
+// as the table's lookup takes it.
+__host__ __device__ constexpr uint32_t step_bits(int last, int k) {
+  uint32_t w = 0;
+  const uint64_t t = step_table(last);
+  for (int b = 0; b < 16; ++b)
+    if ((t >> (4 * b + k)) & 1) w |= 1u << b | 1u << (b + 16);
+  return w;
 }
 
 }  // namespace

@@ -34,7 +34,9 @@ Bounds on the H100: K4 counts K2's 42 integer operations per cell and
 writes one byte per cell, so it is bound by operations; a warp's DP row
 is a chain of latencies (a shuffle scan, the carry) beside its cells,
 and a launch adds the wavefront's fill. K4-tb is a chain of dependent
-byte loads per merge (latency), one warp per merge.
+byte loads per merge (latency), one warp per merge, which reads the bits
+as 128 x 128-byte tiles (``tb_geometry``) loaded by the Tensor Memory
+Accelerator ahead of the walk.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ from delly_tpu_torch.parallel import dispatch
 BUCKETS = (8192, 16384)     # widest dimension of a merge, by launch group
 MAX_WIDE = BUCKETS[-1]
 TILE_BUDGET = 1 << 31       # bytes of direction bits in one launch
-TB_WINDOW_BYTES = 16_384    # K4-tb's window
+TB_TILE = 128               # K4-tb's tiles: 128 x 128 bytes of a merge's bits
+TB_SIDE = 3                 # K4-tb's ring: TB_SIDE x TB_SIDE tiles
 CHUNK_MAX = 4096            # K4's widest chunk: 1,024 threads x 4 columns
 # K4's narrowest strip: 8 warps of 4 columns a lane, so that an SM's four
 # schedulers have two warps each. Narrower strips give a merge more SMs
@@ -103,13 +106,17 @@ def chunks(ms, ns, budget: int | None = None) -> list:
     return out
 
 
-def tb_geometry(N: int) -> tuple:
-    """K4-tb's window for tiles of N columns: (rows, columns, shared
-    memory bytes). TB_WINDOW_BYTES of shared memory, up to 128 columns
-    (a multiple of 16, at most N) and as many rows as fill it."""
-    cols = min(128, N)
-    rows = TB_WINDOW_BYTES // cols
-    return rows, cols, rows * cols
+def tb_geometry(M: int, N: int) -> tuple:
+    """K4-tb's layout for tiles of M x N bytes: (tile side in bytes, ring
+    side in tiles, code row bytes, shared memory bytes). The walk reads
+    TB_TILE x TB_TILE tiles on a fixed grid, TB_SIDE x TB_SIDE of them in
+    its ring, each with an 8-byte barrier; a merge's codes, at most M + N
+    <= 2 MAX_WIDE, collect in a static buffer of 2 MAX_WIDE bytes and
+    leave in 16-byte stores into rows of M + N bytes rounded up to 16."""
+    ring = TB_SIDE * TB_SIDE
+    cstride = -(-(M + N) // 16) * 16
+    return TB_TILE, TB_SIDE, cstride, ring * (TB_TILE * TB_TILE + 8) + \
+        2 * MAX_WIDE
 
 
 def strip_geometry(G: int, N: int, sms: int) -> tuple:
@@ -140,7 +147,7 @@ def _lib(name: str):
         lib.gotoh_wide_launch.restype = _I
     if name == "gotoh_wide_tb" and lib.gotoh_wide_tb_launch.argtypes is None:
         lib.gotoh_wide_tb_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
-                                             _P, _P, _P]
+                                             _P, _I, _P, _P]
         lib.gotoh_wide_tb_launch.restype = _I
     return lib
 
@@ -194,7 +201,8 @@ def gotoh_wide_forward(prof, wc2, d2, mlen, nlen, hfree: bool, vfree: bool,
 
 def gotoh_wide_traceback(bits, mlen, nlen):
     """K4-tb: (codes (G, M + N) uint8 in walk order, lens (G,) int32)
-    for bits (G, M, N) uint8."""
+    for bits (G, M, N) uint8; on the card the codes are a view of rows
+    padded to ``tb_geometry``'s 16-byte multiple."""
     G, M, N = bits.shape
     _check_tile("gotoh_wide_tb", M, N)
     _check("gotoh_wide_tb", bits.device, (
@@ -204,16 +212,19 @@ def gotoh_wide_traceback(bits, mlen, nlen):
         return gotoh_traceback_plain(bits, mlen, nlen)
     if bits.device.type != "cuda":
         raise ValueError(f"gotoh_wide_tb: unsupported device {bits.device}")
-    codes = torch.empty((G, M + N), dtype=torch.uint8, device=bits.device)
+    tile, side, cstride, _smem = tb_geometry(M, N)
+    # rows of cstride bytes, for the kernel's 16-byte stores; the caller
+    # sees their first M + N
+    rows = torch.empty((G, cstride), dtype=torch.uint8, device=bits.device)
+    codes = rows[:, :M + N]
     lens = torch.empty(G, dtype=torch.int32, device=bits.device)
     if G == 0:
         return codes, lens
     if bits.data_ptr() % 16:
         raise ValueError("gotoh_wide_tb: bits must be 16-byte aligned")
-    rows, cols, _smem = tb_geometry(N)
     rc = _lib("gotoh_wide_tb").gotoh_wide_tb_launch(
-        bits.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, M, N, rows,
-        cols, codes.data_ptr(), lens.data_ptr(),
+        bits.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, M, N, tile,
+        side, rows.data_ptr(), cstride, lens.data_ptr(),
         _build.stream_ptr(bits.device))
     _build.check(rc, "gotoh_wide_tb")
     dispatch.count("gotoh_wide_tb")

@@ -376,6 +376,110 @@ def test_gotoh_wide_batch_chunked_on_card(card, monkeypatch):
         np.testing.assert_array_equal(mg, hm)
 
 
+def _subst(rng, s, rate=0.05):
+    """s with a share `rate` of its letters replaced (no indels)."""
+    return "".join(rng.choice("ACGT") if rng.random() < rate else ch
+                   for ch in s)
+
+
+def _gap_case(seed, W):
+    """K4's packed launch of merges whose walks run gaps longer than two
+    of K4-tb's tiles, in a tile of W columns: copies of a base of W - 15
+    to W - 1 letters with a cut of W // 8 in either one (a horizontal
+    and a vertical gap), a third of the base against the whole and the
+    whole against a piece (end gaps, walks that end on row 0 or column
+    0), one letter against the base and the base against one letter."""
+    rng = random.Random(seed)
+    n = W - rng.randint(1, 15)
+    base = _rand_seq(rng, n, n)
+    cut, lo = W // 8, rng.randint(n // 4, n // 2)
+    pairs = [(base, base[:lo] + base[lo + cut:]),
+             (base[:lo] + base[lo + cut:], base),
+             (base[n // 3:2 * n // 3], base), (base, base[n // 5:n // 2]),
+             (base[n // 2:n // 2 + 1], base), (base, base[7:8])]
+    jobs = [(to_align(_subst(rng, x)), to_align(_subst(rng, y)))
+            for x, y in pairs]
+    M, N = gotoh_wide_cuda.tile_shape([a.shape[1] for a, _ in jobs],
+                                      [b.shape[1] for _, b in jobs])
+    return [torch.from_numpy(x) for x in
+            gotoh_cuda.pack_bucket(jobs, M, DnaScore(), N)]
+
+
+def _assert_wide_tb(card, bits, ml, nl):
+    """K4-tb on the card against the plain walk on the same bits (run on
+    the card too): lengths and each walk's codes; one launch."""
+    want_codes, want_lens = gotoh_cuda.gotoh_traceback_plain(bits, ml, nl)
+    dispatch.reset()
+    codes, lens = gotoh_wide_cuda.gotoh_wide_traceback(bits, ml, nl)
+    torch.cuda.synchronize()
+    assert dispatch.snapshot()["gotoh_wide_tb"] == 1
+    assert codes.shape == want_codes.shape
+    assert torch.equal(lens, want_lens)
+    for g in range(len(ml)):
+        k = int(lens[g])
+        assert torch.equal(codes[g, :k], want_codes[g, :k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac", ACS)
+@pytest.mark.parametrize("W", [4112, 16384])
+def test_gotoh_wide_tb_gap_walks_match_plain(card, ac, W):
+    """K4-tb on K4's bits of merges whose walks leave the tiles that the
+    walk's diagonal predicts (gaps of W // 8, end gaps, mlen or nlen of
+    1), in tiles of 4,112 and 16,384 columns, against the plain walk."""
+    prof, wc2, d2, ml, nl = (x.to(card) for x in _gap_case(W + len(ac), W))
+    assert wc2.shape[2] == W
+    _best, bits = gotoh_wide_cuda.gotoh_wide_forward(
+        prof, wc2, d2, ml, nl, ac[0], ac[1], -10, -1)
+    _assert_wide_tb(card, bits, ml, nl)
+
+
+def _random_bits(card, seed, G, M, N, opened):
+    """Direction bits drawn at random on the card (a seeded generator),
+    each merge's gaps opened at cells with probability opened[g %
+    len(opened)] (gaps of about its inverse), S==H and S==V each at 30%;
+    lengths from 1 to M and N, the first merge's M and N."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    bits = torch.empty((G, M, N), dtype=torch.uint8, device=card)
+    for g in range(G):
+        p = opened[g % len(opened)]
+        b = torch.zeros((M, N), dtype=torch.uint8, device=card)
+        for k, share in enumerate((0.3, 0.3, p, p)):
+            hit = torch.rand((M, N), device=card, generator=gen) < share
+            b |= hit.to(torch.uint8) << k
+        bits[g] = b
+    rng = np.random.default_rng(seed)
+    ml = rng.integers(1, M + 1, G).astype(np.int32)
+    nl = rng.integers(1, N + 1, G).astype(np.int32)
+    ml[0], nl[0] = M, N
+    return bits, torch.from_numpy(ml).to(card), torch.from_numpy(nl).to(card)
+
+
+TB_RANDOM = {
+    # one walk over a whole 16,384 x 16,384 tile, gaps of ~300 cells
+    "G 1": (1, 16384, 16384, (0.003,)),
+    # more walks than SMs, in tiles of 4,112 columns
+    "G 300": (300, 160, 4112, (0.2, 0.02, 0.003)),
+    # gaps that open rarely: runs of ~1,000 cells across many tiles
+    "long gaps": (6, 3000, 4112, (0.001,)),
+    # thin tiles: fewer rows or columns than a tile
+    "thin": (40, 37, 16384, (0.05,)),
+    "narrow": (40, 5000, 48, (0.05,)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(TB_RANDOM))
+def test_gotoh_wide_tb_random_bits_match_plain(card, kind):
+    """K4-tb on random direction bits (every byte a walk may meet, gaps
+    of every length) against the plain walk: one walk of a whole
+    16,384-column tile, more walks than the card has SMs, gaps across
+    many tiles, and tiles thinner or narrower than one 64 x 64 tile."""
+    G, M, N, opened = TB_RANDOM[kind]
+    _assert_wide_tb(card, *_random_bits(card, len(kind) + G, G, M, N,
+                                        opened))
+
+
 def _banded_case(seed, n_jobs, lo, hi):
     """Long pairs of a random sequence and a mutated copy (n <= m)."""
     rng = random.Random(seed)

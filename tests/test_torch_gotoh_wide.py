@@ -206,17 +206,22 @@ def test_chunks_under_budget(budget, want):
         assert hi - lo == 1 or (hi - lo) * M * N <= budget
 
 
+@pytest.mark.parametrize("M", [1, 4097, 16384])
 @pytest.mark.parametrize("N", [16, 64, 128, 4112, 8192, 12208, 16384])
-def test_tb_geometry(N):
-    """K4-tb's window as the launch takes it: columns a multiple of 16
-    and at most N (the window's 16-byte loads stay in the tile's rows),
-    rows x columns within the window's bytes, which fit shared memory;
-    at the wide buckets 128 x 128."""
-    rows, cols, smem = wide.tb_geometry(N)
-    assert cols % 16 == 0 and 16 <= cols <= N and rows >= 1
-    assert smem == rows * cols <= wide.TB_WINDOW_BYTES <= gotoh_cuda.SMEM_MAX
-    if N >= 8192:
-        assert (rows, cols) == (128, 128)
+def test_tb_geometry(M, N):
+    """K4-tb's layout as the launch takes it: 128 x 128-byte tiles (the
+    kernel's, whose 16-byte-aligned boxes a tensor map loads), a ring of
+    3 x 3 of them (one buffer a lane of the warp), code rows of M + N
+    bytes rounded up to 16 (the kernel's 16-byte stores), and the ring,
+    a barrier a buffer and the codes of the widest walk within shared
+    memory."""
+    tile, side, cstride, smem = wide.tb_geometry(M, N)
+    assert (tile, side) == (wide.TB_TILE, wide.TB_SIDE) == (128, 3)
+    assert tile % 16 == 0 and side * side <= 32
+    assert cstride % 16 == 0 and M + N <= cstride < M + N + 16
+    assert cstride <= 2 * wide.MAX_WIDE
+    assert smem == side * side * (tile * tile + 8) + 2 * wide.MAX_WIDE
+    assert smem <= gotoh_cuda.SMEM_MAX
 
 
 def test_wrapper_checks():
@@ -362,3 +367,220 @@ def test_strip_model_matches_plain(ac, scheme, width):
             assert int(best[g]) == ws
             np.testing.assert_array_equal(
                 create_alignment_codes(fwd, a1, a2), wm)
+
+
+def _step_table(last):
+    """K2-tb's and K4-tb's step table (csrc/gotoh_common.cuh step_table):
+    16 entries of 4 bits by a cell's direction bits, bit 0 the column
+    steps left, bit 1 the row steps up, bits 2-3 the next state."""
+    t = 0
+    for b in range(16):
+        h = last == 1 or (last == 0 and bool(b & 1))
+        v = not h and (last == 2 or (last == 0 and bool(b & 2)))
+        nxt = (0 if b & 4 else 1) if h else ((0 if b & 8 else 2) if v else 0)
+        t |= (int(not v) | int(not h) << 1 | nxt << 2) << (4 * b)
+    return t
+
+
+def _tb_model(bits, mlen, nlen):
+    """K4-tb's tile schedule in numpy (csrc/gotoh_wide_tb.cu), walk by
+    walk: on entering tile (tr, tc) buffer k = (kr, kc) of the TB_SIDE x
+    TB_SIDE ring takes the window's tile (tr - a, tc - b) of its residues
+    where |a - b| <= 1, or a = 0 in a horizontal gap, or b = 0 in a
+    vertical one, unless it holds it already; the walk waits for its own
+    tile, then reads every byte from the buffer's copy of the tile (zeros
+    past the array, as the tensor map's loads give them). Asserts that a
+    buffer is taken over only from a tile behind the walk and that each
+    byte read lies in a tile that has arrived and was not overwritten.
+    Returns (codes (G, M + N) uint8, lens (G,) int32, schedules): a
+    schedule per walk, {"fetches": [(step, (r, c), buffer)] in issue
+    order, "stalls": [steps at which the walk waited for a tile requested
+    at that same entry], "lead": fewest steps between the request of a
+    tile requested after the walk's first entry and its first read (None
+    if none)}."""
+    G, M, N = bits.shape
+    T, S = wide.TB_TILE, wide.TB_SIDE
+    tables = [_step_table(s) for s in range(3)]
+    pad = np.zeros((G, -(-M // T) * T, -(-N // T) * T), np.uint8)
+    pad[:, :M, :N] = bits
+    codes = np.zeros((G, M + N), np.uint8)
+    lens = np.zeros(G, np.int32)
+    schedules = []
+    for g in range(G):
+        m, n = min(max(int(mlen[g]), 0), M), min(max(int(nlen[g]), 0), N)
+        tag = [None] * (S * S)
+        busy = [False] * (S * S)
+        buf = [None] * (S * S)
+        asked = {}                       # tile: step of its request
+        sched = {"fetches": [], "stalls": [], "lead": None}
+        row, col, last, out = m, n, 0, []
+        while row > 0 and col > 0:
+            tr, tc = (row - 1) // T, (col - 1) // T
+            issued = set()
+            for k in range(S * S):
+                kr, kc = divmod(k, S)
+                a, b = (tr - kr) % S, (tc - kc) % S
+                r, c = tr - a, tc - b
+                want = r >= 0 and c >= 0 and (
+                    abs(a - b) <= 1 or (a == 0 and last == 1)
+                    or (b == 0 and last == 2))
+                if want and tag[k] != (r, c):
+                    assert tag[k] is None or (tag[k][0] > tr
+                                              or tag[k][1] > tc), (
+                        "a buffer taken from a tile the walk may enter")
+                    tag[k], busy[k] = (r, c), True
+                    buf[k] = pad[g, r * T:(r + 1) * T, c * T:(c + 1) * T]
+                    sched["fetches"].append((len(out), (r, c), k))
+                    asked[(r, c)] = len(out)
+                    issued.add(k)
+            q = (tr % S) * S + tc % S
+            assert tag[q] == (tr, tc)
+            if busy[q]:
+                if q in issued:
+                    sched["stalls"].append(len(out))
+                elif asked[(tr, tc)] > 0:
+                    lead = len(out) - asked[(tr, tc)]
+                    sched["lead"] = (lead if sched["lead"] is None
+                                     else min(sched["lead"], lead))
+                busy[q] = False
+            r0, c0 = tr * T, tc * T
+            while True:
+                assert tag[q] == (tr, tc) and not busy[q]
+                byte = int(buf[q][row - 1 - r0, col - 1 - c0])
+                e = tables[last] >> (4 * (byte & 15)) & 15
+                dc, dr = e & 1, (e >> 1) & 1
+                last = e >> 2
+                out.append(0 if dr and dc else (2 if dr else 1))
+                col -= dc
+                row -= dr
+                if not (row > r0 and col > c0):
+                    break
+        # row 0 or column 0: no bits read; as the plain walk, at most M + N
+        # codes (a valid walk stops at mlen + nlen)
+        while (row > 0 or col > 0) and len(out) < M + N:
+            if last == 0:
+                last = 1 if row == 0 else 2
+            elif last == 1:
+                if row == 0 and col == 1:
+                    last = 0
+                col -= 1
+                out.append(1)
+            else:
+                if col == 0 and row == 1:
+                    last = 0
+                row -= 1
+                out.append(2)
+        codes[g, :len(out)] = out
+        lens[g] = len(out)
+        schedules.append(sched)
+    return codes, lens, schedules
+
+
+def _gap_jobs(seed):
+    """Merges in one jagged tile whose walks cross K4-tb's 128-byte tiles:
+    a horizontal and a vertical gap of 300-380 columns or rows (longer
+    than two tiles) inside mutated copies, a short profile against a
+    long one (end gaps, and a walk that ends on row 0 or column 0 or,
+    with free end gaps, runs along one), mlen and nlen of 1 beside wide
+    ones, and a mutated copy with substitutions only; lengths not
+    multiples of 16."""
+    rng = random.Random(seed)
+    base = _rand_seq(rng, 1200)
+    cut = rng.randint(300, 380)
+    lo = rng.randint(350, 500)
+    jobs = [(base[:730], base[:lo] + base[lo + cut:730]),     # gap in a2
+            (base[:lo] + base[lo + cut:737], base[:737]),     # gap in a1
+            (base[100:390], base[:1011]),                     # a1 inside a2
+            (base[:923], base[350:589]),                      # a2 inside a1
+            (base[600:601], base[:633]), (base[:551], base[400:401]),
+            (base[5:1182], base[5:1182])]
+    out = []
+    for k, (x, y) in enumerate(jobs):
+        rows = (1, 2, 3)[k % 3]
+        out.append((_block(rng, x, rows), _block(rng, y, 1 + k % 2)))
+    return out
+
+
+def _model_case(jobs, ac, scheme):
+    """The jobs packed into one tile, K4's plain forward run on it, and
+    the plain walk and the schedule model on its bits."""
+    M, N = wide.tile_shape([a.shape[1] for a, _ in jobs],
+                           [b.shape[1] for _, b in jobs])
+    tsc = TDnaScore(*scheme)
+    packed = gotoh_cuda.pack_bucket(jobs, M, tsc, N)
+    go, ge = int(tsc.go), int(tsc.ge)
+    t = [torch.from_numpy(x) for x in packed]
+    _best, bits = gotoh_cuda.gotoh_forward_plain(*t, ac[0], ac[1], go, ge)
+    want_codes, want_lens = gotoh_cuda.gotoh_traceback_plain(bits, t[3],
+                                                             t[4])
+    codes, lens, scheds = _tb_model(bits.numpy(), packed[3], packed[4])
+    return packed, want_codes.numpy(), want_lens.numpy(), codes, lens, scheds
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("ac", ACS)
+def test_tb_model_matches_plain(ac, scheme):
+    """K4-tb's tile schedule (_tb_model) gives the lengths and codes of
+    gotoh_traceback_plain on walks with gaps longer than two tiles, walks
+    ending on row 0 or column 0, mlen < M, nlen < N, lengths off 16, and
+    M != N, for all four end-gap configurations and both schemes; every
+    byte read from a tile that had arrived and was not overwritten, and
+    the walk waits only for its first tile (every later one was requested
+    at an earlier entry). At the MSA's configuration its walks also give
+    delly_tpu's device Gotoh (ops/gotoh_device.gotoh_device)."""
+    jobs = _gap_jobs(3 * len(ac) + scheme[0] + 5 * ac[0] + 7 * ac[1])
+    packed, want_codes, want_lens, codes, lens, scheds = _model_case(
+        jobs, ac, scheme)
+    M, N = packed[0].shape[1], packed[1].shape[2]
+    assert M != N and any(x % 16 for x in packed[4])
+    np.testing.assert_array_equal(lens, want_lens)
+    for g in range(len(jobs)):
+        np.testing.assert_array_equal(codes[g, :lens[g]],
+                                      want_codes[g, :lens[g]])
+        assert scheds[g]["stalls"] == ([0] if scheds[g]["fetches"] else [])
+    # the cases hold: a horizontal and a vertical run of moves longer
+    # than two tiles, and a walk whose last move is along row 0 or column
+    # 0 (a move that is no diagonal)
+    runs = {1: 0, 2: 0}
+    for g in range(len(jobs)):
+        walk = codes[g, :lens[g]].tolist()
+        k = 0
+        while k < len(walk):
+            j = k
+            while j < len(walk) and walk[j] == walk[k]:
+                j += 1
+            if walk[k]:
+                runs[walk[k]] = max(runs[walk[k]], j - k)
+            k = j
+    assert min(runs.values()) > 2 * wide.TB_TILE, runs
+    assert any(codes[g, lens[g] - 1] for g in range(len(jobs)))
+    if ac == (True, True) and scheme == SCHEMES[0]:
+        for g, (a1, a2) in enumerate(jobs):
+            fwd = codes[g, :lens[g]][::-1].astype(np.int64)
+            _ws, wm = gotoh_device(a1, a2, ac=ac, sc=DnaScore(*scheme))
+            np.testing.assert_array_equal(
+                create_alignment_codes(fwd, a1, a2), wm)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_tb_model_prefetches_ahead(seed):
+    """On walks of mutated copies (substitutions only, as most of the
+    MSA's long merges) the schedule holds no walk for a load it could
+    have started earlier: it waits only for its first tile, and every
+    tile requested after the first entry is requested at least a tile's
+    side of steps before the walk reads it."""
+    rng = random.Random(100 + seed)
+    jobs = []
+    for k in range(3):
+        base = _rand_seq(rng, rng.randint(500, 800))
+        lo = rng.randint(0, 40)
+        jobs.append((_block(rng, base, 1 + k % 2),
+                     _block(rng, base[lo:], 1 + (k + 1) % 2)))
+    packed, want_codes, want_lens, codes, lens, scheds = _model_case(
+        jobs, (False, False), SCHEMES[0])
+    np.testing.assert_array_equal(lens, want_lens)
+    for g, s in enumerate(scheds):
+        np.testing.assert_array_equal(codes[g, :lens[g]],
+                                      want_codes[g, :lens[g]])
+        assert s["stalls"] == [0]
+        assert s["lead"] is not None and s["lead"] >= wide.TB_TILE
