@@ -1,0 +1,11 @@
+"""roofline.k1: the share, in %, of its bound that the kernel of
+delly_tpu_torch/csrc/myers.cu (K1) reaches in the traced window: the sum over the
+window's batches of the bound of their work (svbench/metrics/_work.py)
+over the kernel's device seconds by name in the trace. None where the
+window ran no such kernel or the trace holds none of its records."""
+
+from svbench.metrics import _roofline
+
+
+def read(rec):
+    return _roofline.share(rec, "k1")
