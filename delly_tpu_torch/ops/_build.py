@@ -9,6 +9,13 @@ ctypes. Every C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; ``check`` raises when that is not 0.
 Nothing here runs at import time: the CPU tests import every module
 on a machine with no ``nvcc``.
+
+``loads`` keeps, for each library a process loads, the set-up it paid
+once: ``load_s``, the build (where the library was not built yet) and
+the load, and ``first_launch_s``, from the end of the load to the end
+of the first launch (which holds CUDA's lazy load of the kernels'
+module). Where host spans are on (utils/profiling.py) builds and loads
+are also spans ``build.<name>`` and ``load.<name>``.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import subprocess
 import threading
 import time
 
+from delly_tpu_torch.utils import profiling
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -32,6 +41,8 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _libs: dict = {}
 _lock = threading.Lock()
 build_log: dict = {}
+loads: dict = {}
+_first: dict = {}           # name -> the end of its load, until it launches
 
 
 def _nvcc() -> str:
@@ -62,6 +73,7 @@ def build(names=SOURCES) -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     t0 = time.time()
+    t0_ns = time.perf_counter_ns()
     for name in names:
         out = _lib_path(name)
         if os.path.exists(out):
@@ -75,6 +87,7 @@ def build(names=SOURCES) -> dict:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         secs[name] = time.time() - t0
+        profiling.record(f"build.{name}", t0_ns, time.perf_counter_ns())
         build_log[name] = log
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
@@ -87,14 +100,26 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.perf_counter_ns()
             path = _lib_path(name)
             if not os.path.exists(path):
                 build([name])
             lib = _libs[name] = ctypes.CDLL(path)
+            t1 = time.perf_counter_ns()
+            profiling.record(f"load.{name}", t0, t1)
+            loads[name] = {"load_s": (t1 - t0) / 1e9}
+            _first[name] = t1
         return lib
 
 
 def check(rc: int, name: str) -> None:
+    """Raises where launch `name` returned an error; the first launch of
+    each library also ends its set-up in ``loads``."""
+    if _first:
+        t0 = _first.pop(name, None)
+        if t0 is not None:
+            loads[name]["first_launch_s"] = (time.perf_counter_ns()
+                                             - t0) / 1e9
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 

@@ -42,6 +42,7 @@ from delly_tpu_torch.ops.gotoh import (
 )
 from delly_tpu_torch.ops.gotoh_banded import QUANT, gotoh_banded_host
 from delly_tpu_torch.parallel import dispatch
+from delly_tpu_torch.utils import profiling
 
 NINF = -INF
 BANDS = (512, 1024, 2048, 4096)
@@ -49,6 +50,12 @@ MAX_M = 32768
 TILE_BYTES = 1 << 32       # direction bytes of one launch, at most
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# host spans (utils/profiling.py) of each wrapper: the call, then its
+# phases check, plan, alloc, upload and launch
+(_FWD_CALL, _FWD_CHECK, _FWD_PLAN, _FWD_ALLOC, _FWD_UPLOAD,
+ _FWD_LAUNCH) = profiling.kernel_spans("gotoh_banded")
+(_TB_CALL, _TB_CHECK, _TB_PLAN, _TB_ALLOC, _TB_UPLOAD,
+ _TB_LAUNCH) = profiling.kernel_spans("gotoh_banded_tb")
 
 _ALLOWED = frozenset(b"ACGTN-")  # uppercase only: the host oracle scores
 # raw bytes, as the kernel does
@@ -315,54 +322,84 @@ def banded_forward(s1, s2, mlen, nlen, B: int, hfree: bool, vfree: bool,
     fewer jobs than the card has SMs); it does not change the result.
     `host_lengths`: the numpy mlen and nlen that the caller uploaded,
     checked in place of the card's (see _check_lengths)."""
-    G, M = s1.shape
-    _check_mb("gotoh_banded", M, B)
-    _check("gotoh_banded", s1.device, (
-        ("s1", s1, torch.uint8, (G, M)), ("s2", s2, torch.uint8, (G, M)),
-        ("mlen", mlen, torch.int32, (G,)), ("nlen", nlen, torch.int32, (G,))))
-    _check_lengths("gotoh_banded", mlen, nlen, M, host_lengths)
-    if s1.device.type == "cpu":
-        return banded_forward_plain(s1, s2, mlen, nlen, B, hfree, vfree,
-                                    match, mismatch, go, ge)
-    if s1.device.type != "cuda":
-        raise ValueError(f"gotoh_banded: unsupported device {s1.device}")
-    best = torch.empty(G, dtype=torch.int32, device=s1.device)
-    bits = torch.empty((G, M, B), dtype=torch.uint8, device=s1.device)
-    if G == 0:
+    s0 = s = (profiling.begin() if profiling.ON
+              or profiling.PROFILER._is_profiler_enabled else 0)
+    try:
+        G, M = s1.shape
+        _check_mb("gotoh_banded", M, B)
+        _check("gotoh_banded", s1.device, (
+            ("s1", s1, torch.uint8, (G, M)), ("s2", s2, torch.uint8, (G, M)),
+            ("mlen", mlen, torch.int32, (G,)),
+            ("nlen", nlen, torch.int32, (G,))))
+        _check_lengths("gotoh_banded", mlen, nlen, M, host_lengths)
+        if s:
+            s = profiling.mark(_FWD_CHECK, s)
+        if s1.device.type == "cpu":
+            return banded_forward_plain(s1, s2, mlen, nlen, B, hfree,
+                                        vfree, match, mismatch, go, ge)
+        if s1.device.type != "cuda":
+            raise ValueError(
+                f"gotoh_banded: unsupported device {s1.device}")
+        best = torch.empty(G, dtype=torch.int32, device=s1.device)
+        bits = torch.empty((G, M, B), dtype=torch.uint8, device=s1.device)
+        if s:
+            s = profiling.mark(_FWD_ALLOC, s)
+        if G == 0:
+            return best, bits
+        rc = _lib("gotoh_banded").gotoh_banded_launch(
+            s1.data_ptr(), s2.data_ptr(), mlen.data_ptr(), nlen.data_ptr(),
+            G, M, B, int(hfree), int(vfree), int(match), int(mismatch),
+            int(go), int(ge), best.data_ptr(), bits.data_ptr(), int(spread),
+            _build.stream_ptr(s1.device))
+        _build.check(rc, "gotoh_banded")
+        dispatch.count("gotoh_banded")
+        if s:
+            profiling.mark(_FWD_LAUNCH, s)
         return best, bits
-    rc = _lib("gotoh_banded").gotoh_banded_launch(
-        s1.data_ptr(), s2.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, M,
-        B, int(hfree), int(vfree), int(match), int(mismatch), int(go), int(ge),
-        best.data_ptr(), bits.data_ptr(), int(spread),
-        _build.stream_ptr(s1.device))
-    _build.check(rc, "gotoh_banded")
-    dispatch.count("gotoh_banded")
-    return best, bits
+    finally:
+        if s0:
+            profiling.mark(_FWD_CALL, s0)
 
 
 def banded_traceback(bits, mlen, nlen, host_lengths=None):
     """K3-tb: (codes (G, 2M) uint8 in walk order, lens (G,) int32).
     `host_lengths` as in banded_forward."""
-    G, M, B = bits.shape
-    _check_mb("gotoh_banded_tb", M, B)
-    _check("gotoh_banded_tb", bits.device, (
-        ("bits", bits, torch.uint8, (G, M, B)),
-        ("mlen", mlen, torch.int32, (G,)), ("nlen", nlen, torch.int32, (G,))))
-    _check_lengths("gotoh_banded_tb", mlen, nlen, M, host_lengths)
-    if bits.device.type == "cpu":
-        return banded_traceback_plain(bits, mlen, nlen)
-    if bits.device.type != "cuda":
-        raise ValueError(f"gotoh_banded_tb: unsupported device {bits.device}")
-    codes = torch.empty((G, 2 * M), dtype=torch.uint8, device=bits.device)
-    lens = torch.empty(G, dtype=torch.int32, device=bits.device)
-    if G == 0:
+    s0 = s = (profiling.begin() if profiling.ON
+              or profiling.PROFILER._is_profiler_enabled else 0)
+    try:
+        G, M, B = bits.shape
+        _check_mb("gotoh_banded_tb", M, B)
+        _check("gotoh_banded_tb", bits.device, (
+            ("bits", bits, torch.uint8, (G, M, B)),
+            ("mlen", mlen, torch.int32, (G,)),
+            ("nlen", nlen, torch.int32, (G,))))
+        _check_lengths("gotoh_banded_tb", mlen, nlen, M, host_lengths)
+        if s:
+            s = profiling.mark(_TB_CHECK, s)
+        if bits.device.type == "cpu":
+            return banded_traceback_plain(bits, mlen, nlen)
+        if bits.device.type != "cuda":
+            raise ValueError(
+                f"gotoh_banded_tb: unsupported device {bits.device}")
+        codes = torch.empty((G, 2 * M), dtype=torch.uint8,
+                            device=bits.device)
+        lens = torch.empty(G, dtype=torch.int32, device=bits.device)
+        if s:
+            s = profiling.mark(_TB_ALLOC, s)
+        if G == 0:
+            return codes, lens
+        rc = _lib("gotoh_banded_tb").gotoh_banded_tb_launch(
+            bits.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, M, B,
+            codes.data_ptr(), lens.data_ptr(),
+            _build.stream_ptr(bits.device))
+        _build.check(rc, "gotoh_banded_tb")
+        dispatch.count("gotoh_banded_tb")
+        if s:
+            profiling.mark(_TB_LAUNCH, s)
         return codes, lens
-    rc = _lib("gotoh_banded_tb").gotoh_banded_tb_launch(
-        bits.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, M, B,
-        codes.data_ptr(), lens.data_ptr(), _build.stream_ptr(bits.device))
-    _build.check(rc, "gotoh_banded_tb")
-    dispatch.count("gotoh_banded_tb")
-    return codes, lens
+    finally:
+        if s0:
+            profiling.mark(_TB_CALL, s0)
 
 
 # ---------------------------------------------------------------------------

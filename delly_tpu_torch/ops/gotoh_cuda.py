@@ -40,6 +40,7 @@ from delly_tpu_torch.ops.gotoh import (
     profile_counts, to_align,
 )
 from delly_tpu_torch.parallel import dispatch
+from delly_tpu_torch.utils import profiling
 
 MAX_K = 4096    # largest padded dimension served by the kernel
 SMEM_MAX = 232_448          # dynamic shared memory one block may use (H100)
@@ -47,6 +48,14 @@ TB_WINDOW_BYTES = 32_768    # K2-tb's window above K = 128
 NINF = -INF
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# host spans (utils/profiling.py) of each wrapper: the call, then its
+# phases check, plan, alloc, upload and launch
+(_FWD_CALL, _FWD_CHECK, _FWD_PLAN, _FWD_ALLOC, _FWD_UPLOAD,
+ _FWD_LAUNCH) = profiling.kernel_spans("gotoh")
+(_TB_CALL, _TB_CHECK, _TB_PLAN, _TB_ALLOC, _TB_UPLOAD,
+ _TB_LAUNCH) = profiling.kernel_spans("gotoh_tb")
+_BATCH_CALL, _BATCH_PACK, _BATCH_H2D, _BATCH_D2H = profiling.entry_spans(
+    "gotoh_batch")
 
 
 def _bucket_k(x: int) -> int:
@@ -247,56 +256,83 @@ def gotoh_forward(prof, wc2, d2, mlen, nlen, hfree: bool, vfree: bool,
                   go: int, ge: int):
     """K2: (best (G,) int32, bits (G, K, K) uint8) for prof (G, K, 6),
     wc2 (G, 5, K), d2 (G, K), mlen/nlen (G,), all int32."""
-    G, K = prof.shape[0], prof.shape[1]
-    _check_k("gotoh", K)
-    i32 = torch.int32
-    _check("gotoh", prof.device, (
-        ("prof", prof, i32, (G, K, 6)), ("wc2", wc2, i32, (G, 5, K)),
-        ("d2", d2, i32, (G, K)), ("mlen", mlen, i32, (G,)),
-        ("nlen", nlen, i32, (G,))))
-    if prof.device.type == "cpu":
-        return gotoh_forward_plain(prof, wc2, d2, mlen, nlen, hfree, vfree,
-                                   go, ge)
-    if prof.device.type != "cuda":
-        raise ValueError(f"gotoh: unsupported device {prof.device}")
-    best = torch.empty(G, dtype=i32, device=prof.device)
-    bits = torch.empty((G, K, K), dtype=torch.uint8, device=prof.device)
-    if G == 0:
+    s0 = s = (profiling.begin() if profiling.ON
+              or profiling.PROFILER._is_profiler_enabled else 0)
+    try:
+        G, K = prof.shape[0], prof.shape[1]
+        _check_k("gotoh", K)
+        i32 = torch.int32
+        _check("gotoh", prof.device, (
+            ("prof", prof, i32, (G, K, 6)), ("wc2", wc2, i32, (G, 5, K)),
+            ("d2", d2, i32, (G, K)), ("mlen", mlen, i32, (G,)),
+            ("nlen", nlen, i32, (G,))))
+        if s:
+            s = profiling.mark(_FWD_CHECK, s)
+        if prof.device.type == "cpu":
+            return gotoh_forward_plain(prof, wc2, d2, mlen, nlen, hfree,
+                                       vfree, go, ge)
+        if prof.device.type != "cuda":
+            raise ValueError(f"gotoh: unsupported device {prof.device}")
+        best = torch.empty(G, dtype=i32, device=prof.device)
+        bits = torch.empty((G, K, K), dtype=torch.uint8, device=prof.device)
+        if G == 0:
+            return best, bits
+        if s:
+            s = profiling.mark(_FWD_ALLOC, s)
+        rc = _lib("gotoh").gotoh_launch(
+            prof.data_ptr(), wc2.data_ptr(), d2.data_ptr(), mlen.data_ptr(),
+            nlen.data_ptr(), G, K, int(hfree), int(vfree), int(go), int(ge),
+            best.data_ptr(), bits.data_ptr(), _build.stream_ptr(prof.device))
+        _build.check(rc, "gotoh")
+        dispatch.count("gotoh")
+        if s:
+            profiling.mark(_FWD_LAUNCH, s)
         return best, bits
-    rc = _lib("gotoh").gotoh_launch(
-        prof.data_ptr(), wc2.data_ptr(), d2.data_ptr(), mlen.data_ptr(),
-        nlen.data_ptr(), G, K, int(hfree), int(vfree), int(go), int(ge),
-        best.data_ptr(), bits.data_ptr(), _build.stream_ptr(prof.device))
-    _build.check(rc, "gotoh")
-    dispatch.count("gotoh")
-    return best, bits
+    finally:
+        if s0:
+            profiling.mark(_FWD_CALL, s0)
 
 
 def gotoh_traceback(bits, mlen, nlen):
     """K2-tb: (codes (G, 2K) uint8 in walk order, lens (G,) int32)."""
-    G, K = bits.shape[0], bits.shape[1]
-    _check_k("gotoh_tb", K)
-    _check("gotoh_tb", bits.device, (
-        ("bits", bits, torch.uint8, (G, K, K)),
-        ("mlen", mlen, torch.int32, (G,)), ("nlen", nlen, torch.int32, (G,))))
-    if bits.device.type == "cpu":
-        return gotoh_traceback_plain(bits, mlen, nlen)
-    if bits.device.type != "cuda":
-        raise ValueError(f"gotoh_tb: unsupported device {bits.device}")
-    codes = torch.empty((G, 2 * K), dtype=torch.uint8, device=bits.device)
-    lens = torch.empty(G, dtype=torch.int32, device=bits.device)
-    if G == 0:
+    s0 = s = (profiling.begin() if profiling.ON
+              or profiling.PROFILER._is_profiler_enabled else 0)
+    try:
+        G, K = bits.shape[0], bits.shape[1]
+        _check_k("gotoh_tb", K)
+        _check("gotoh_tb", bits.device, (
+            ("bits", bits, torch.uint8, (G, K, K)),
+            ("mlen", mlen, torch.int32, (G,)),
+            ("nlen", nlen, torch.int32, (G,))))
+        if s:
+            s = profiling.mark(_TB_CHECK, s)
+        if bits.device.type == "cpu":
+            return gotoh_traceback_plain(bits, mlen, nlen)
+        if bits.device.type != "cuda":
+            raise ValueError(f"gotoh_tb: unsupported device {bits.device}")
+        codes = torch.empty((G, 2 * K), dtype=torch.uint8, device=bits.device)
+        lens = torch.empty(G, dtype=torch.int32, device=bits.device)
+        if G == 0:
+            return codes, lens
+        if s:
+            s = profiling.mark(_TB_ALLOC, s)
+        if bits.data_ptr() % 16:
+            raise ValueError("gotoh_tb: bits must be 16-byte aligned")
+        rows, stages, _smem = tb_geometry(K)
+        if s:
+            s = profiling.mark(_TB_PLAN, s)
+        rc = _lib("gotoh_tb").gotoh_tb_launch(
+            bits.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, K, rows,
+            stages, codes.data_ptr(), lens.data_ptr(),
+            _build.stream_ptr(bits.device))
+        _build.check(rc, "gotoh_tb")
+        dispatch.count("gotoh_tb")
+        if s:
+            profiling.mark(_TB_LAUNCH, s)
         return codes, lens
-    if bits.data_ptr() % 16:
-        raise ValueError("gotoh_tb: bits must be 16-byte aligned")
-    rows, stages, _smem = tb_geometry(K)
-    rc = _lib("gotoh_tb").gotoh_tb_launch(
-        bits.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, K, rows,
-        stages, codes.data_ptr(), lens.data_ptr(),
-        _build.stream_ptr(bits.device))
-    _build.check(rc, "gotoh_tb")
-    dispatch.count("gotoh_tb")
-    return codes, lens
+    finally:
+        if s0:
+            profiling.mark(_TB_CALL, s0)
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +376,16 @@ def gotoh_batch(jobs, ac=(False, False), sc: DnaScore | None = None):
     take the host DP individually and count as host routes. Under an
     active mesh (parallel/dispatch.py) each K bucket is cut into
     contiguous chunks, one per device, after that gate."""
+    s0 = (profiling.begin() if profiling.ON
+          or profiling.PROFILER._is_profiler_enabled else 0)
+    try:
+        return _gotoh_batch(jobs, ac, sc, s0)
+    finally:
+        if s0:
+            profiling.mark(_BATCH_CALL, s0)
+
+
+def _gotoh_batch(jobs, ac, sc, s0):
     from delly_tpu_torch.ops.gotoh_wide_cuda import (
         gotoh_wide_batch, wide_eligible,
     )
@@ -367,9 +413,14 @@ def gotoh_batch(jobs, ac=(False, False), sc: DnaScore | None = None):
     for K, idxs in sorted(by_bucket.items()):
         def launch(d, lo, hi, K=K, idxs=idxs):
             part = idxs[lo:hi]
+            h = profiling.now() if s0 else 0
             packed = pack_bucket([jobs[i] for i in part], K, sc)
+            if h:
+                h = profiling.mark(_BATCH_PACK, h)
             prof, wc2, d2, ml, nl = (torch.from_numpy(x).to(d)
                                      for x in packed)
+            if h:
+                profiling.mark(_BATCH_H2D, h)
             best, bits = gotoh_forward(prof, wc2, d2, ml, nl, bool(ac[0]),
                                        bool(ac[1]), int(sc.go), int(sc.ge))
             codes, lens = gotoh_traceback(bits, ml, nl)
@@ -378,9 +429,12 @@ def gotoh_batch(jobs, ac=(False, False), sc: DnaScore | None = None):
         outs = ([launch(dev, 0, len(idxs))] if mesh is None else
                 dispatch.split_batch(mesh, "gotoh_msa", len(idxs), launch))
         for part, best, codes, lens in outs:
+            h = profiling.now() if s0 else 0
             best = best.cpu().numpy()
             codes = codes.cpu().numpy()
             lens = lens.cpu().numpy()
+            if h:
+                profiling.mark(_BATCH_D2H, h)
             for slot, idx in enumerate(part):
                 a1, a2 = jobs[idx]
                 fwd = codes[slot, :lens[slot]][::-1].astype(np.int64)

@@ -53,6 +53,7 @@ from delly_tpu_torch.ops.gotoh_cuda import (
     pack_bucket,
 )
 from delly_tpu_torch.parallel import dispatch
+from delly_tpu_torch.utils import profiling
 
 BUCKETS = (8192, 16384)     # widest dimension of a merge, by launch group
 MAX_WIDE = BUCKETS[-1]
@@ -70,6 +71,12 @@ CHUNK_MAX = 4096            # K4's widest chunk: 1,024 threads x 4 columns
 STRIP_FLOOR = 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# host spans (utils/profiling.py) of each wrapper: the call, then its
+# phases check, plan, alloc, upload and launch
+(_FWD_CALL, _FWD_CHECK, _FWD_PLAN, _FWD_ALLOC, _FWD_UPLOAD,
+ _FWD_LAUNCH) = profiling.kernel_spans("gotoh_wide")
+(_TB_CALL, _TB_CHECK, _TB_PLAN, _TB_ALLOC, _TB_UPLOAD,
+ _TB_LAUNCH) = profiling.kernel_spans("gotoh_wide_tb")
 
 
 def wide_eligible(a1: np.ndarray, a2: np.ndarray) -> bool:
@@ -164,71 +171,106 @@ def gotoh_wide_forward(prof, wc2, d2, mlen, nlen, hfree: bool, vfree: bool,
     wc2 (G, 5, N), d2 (G, N), mlen/nlen (G,), all int32, with 1 <= mlen
     <= M and 1 <= nlen <= N; on the card in ``strip_geometry``'s strips
     for the SMs of the tensors' device."""
-    G, M, N = prof.shape[0], prof.shape[1], wc2.shape[2]
-    _check_tile("gotoh_wide", M, N)
-    i32 = torch.int32
-    _check("gotoh_wide", prof.device, (
-        ("prof", prof, i32, (G, M, 6)), ("wc2", wc2, i32, (G, 5, N)),
-        ("d2", d2, i32, (G, N)), ("mlen", mlen, i32, (G,)),
-        ("nlen", nlen, i32, (G,))))
-    if prof.device.type == "cpu":
-        return gotoh_forward_plain(prof, wc2, d2, mlen, nlen, hfree, vfree,
-                                   go, ge)
-    if prof.device.type != "cuda":
-        raise ValueError(f"gotoh_wide: unsupported device {prof.device}")
-    best = torch.empty(G, dtype=i32, device=prof.device)
-    bits = torch.empty((G, M, N), dtype=torch.uint8, device=prof.device)
-    if G == 0:
+    s0 = s = (profiling.begin() if profiling.ON
+              or profiling.PROFILER._is_profiler_enabled else 0)
+    try:
+        G, M, N = prof.shape[0], prof.shape[1], wc2.shape[2]
+        _check_tile("gotoh_wide", M, N)
+        i32 = torch.int32
+        _check("gotoh_wide", prof.device, (
+            ("prof", prof, i32, (G, M, 6)), ("wc2", wc2, i32, (G, 5, N)),
+            ("d2", d2, i32, (G, N)), ("mlen", mlen, i32, (G,)),
+            ("nlen", nlen, i32, (G,))))
+        if s:
+            s = profiling.mark(_FWD_CHECK, s)
+        if prof.device.type == "cpu":
+            return gotoh_forward_plain(prof, wc2, d2, mlen, nlen, hfree,
+                                       vfree, go, ge)
+        if prof.device.type != "cuda":
+            raise ValueError(f"gotoh_wide: unsupported device {prof.device}")
+        best = torch.empty(G, dtype=i32, device=prof.device)
+        bits = torch.empty((G, M, N), dtype=torch.uint8, device=prof.device)
+        if s:
+            s = profiling.mark(_FWD_ALLOC, s)
+        if G == 0:
+            return best, bits
+        if any(x.data_ptr() % 16 for x in (prof, wc2, d2)):
+            raise ValueError("gotoh_wide: prof, wc2 and d2 must be 16-byte "
+                             "aligned")
+        sms = torch.cuda.get_device_properties(
+            prof.device).multi_processor_count
+        P, W, C = strip_geometry(G, N, sms)
+        if s:
+            s = profiling.mark(_FWD_PLAN, s)
+        Q = P * C
+        # the carry rings: a record of 4 int32 per DP row and chunk
+        # boundary
+        recs = torch.empty((G, Q - 1, M, 4) if Q > 1 else (4,),
+                           dtype=torch.int32, device=prof.device)
+        if s:
+            s = profiling.mark(_FWD_ALLOC, s)
+        rc = _lib("gotoh_wide").gotoh_wide_launch(
+            prof.data_ptr(), wc2.data_ptr(), d2.data_ptr(), mlen.data_ptr(),
+            nlen.data_ptr(), G, M, N, P, Q, W // C, int(hfree), int(vfree),
+            int(go), int(ge), best.data_ptr(), bits.data_ptr(),
+            recs.data_ptr(), _build.stream_ptr(prof.device))
+        _build.check(rc, "gotoh_wide")
+        dispatch.count("gotoh_wide")
+        if s:
+            profiling.mark(_FWD_LAUNCH, s)
         return best, bits
-    if any(x.data_ptr() % 16 for x in (prof, wc2, d2)):
-        raise ValueError("gotoh_wide: prof, wc2 and d2 must be 16-byte "
-                         "aligned")
-    sms = torch.cuda.get_device_properties(prof.device).multi_processor_count
-    P, W, C = strip_geometry(G, N, sms)
-    Q = P * C
-    # the carry rings: a record of 4 int32 per DP row and chunk boundary
-    recs = torch.empty((G, Q - 1, M, 4) if Q > 1 else (4,),
-                       dtype=torch.int32, device=prof.device)
-    rc = _lib("gotoh_wide").gotoh_wide_launch(
-        prof.data_ptr(), wc2.data_ptr(), d2.data_ptr(), mlen.data_ptr(),
-        nlen.data_ptr(), G, M, N, P, Q, W // C, int(hfree), int(vfree),
-        int(go), int(ge), best.data_ptr(), bits.data_ptr(), recs.data_ptr(),
-        _build.stream_ptr(prof.device))
-    _build.check(rc, "gotoh_wide")
-    dispatch.count("gotoh_wide")
-    return best, bits
+    finally:
+        if s0:
+            profiling.mark(_FWD_CALL, s0)
 
 
 def gotoh_wide_traceback(bits, mlen, nlen):
     """K4-tb: (codes (G, M + N) uint8 in walk order, lens (G,) int32)
     for bits (G, M, N) uint8; on the card the codes are a view of rows
     padded to ``tb_geometry``'s 16-byte multiple."""
-    G, M, N = bits.shape
-    _check_tile("gotoh_wide_tb", M, N)
-    _check("gotoh_wide_tb", bits.device, (
-        ("bits", bits, torch.uint8, (G, M, N)),
-        ("mlen", mlen, torch.int32, (G,)), ("nlen", nlen, torch.int32, (G,))))
-    if bits.device.type == "cpu":
-        return gotoh_traceback_plain(bits, mlen, nlen)
-    if bits.device.type != "cuda":
-        raise ValueError(f"gotoh_wide_tb: unsupported device {bits.device}")
-    tile, side, cstride, _smem = tb_geometry(M, N)
-    # rows of cstride bytes, for the kernel's 16-byte stores; the caller
-    # sees their first M + N
-    rows = torch.empty((G, cstride), dtype=torch.uint8, device=bits.device)
-    codes = rows[:, :M + N]
-    lens = torch.empty(G, dtype=torch.int32, device=bits.device)
-    if G == 0:
+    s0 = s = (profiling.begin() if profiling.ON
+              or profiling.PROFILER._is_profiler_enabled else 0)
+    try:
+        G, M, N = bits.shape
+        _check_tile("gotoh_wide_tb", M, N)
+        _check("gotoh_wide_tb", bits.device, (
+            ("bits", bits, torch.uint8, (G, M, N)),
+            ("mlen", mlen, torch.int32, (G,)),
+            ("nlen", nlen, torch.int32, (G,))))
+        if s:
+            s = profiling.mark(_TB_CHECK, s)
+        if bits.device.type == "cpu":
+            return gotoh_traceback_plain(bits, mlen, nlen)
+        if bits.device.type != "cuda":
+            raise ValueError(
+                f"gotoh_wide_tb: unsupported device {bits.device}")
+        tile, side, cstride, _smem = tb_geometry(M, N)
+        if s:
+            s = profiling.mark(_TB_PLAN, s)
+        # rows of cstride bytes, for the kernel's 16-byte stores; the
+        # caller sees their first M + N
+        rows = torch.empty((G, cstride), dtype=torch.uint8,
+                           device=bits.device)
+        codes = rows[:, :M + N]
+        lens = torch.empty(G, dtype=torch.int32, device=bits.device)
+        if s:
+            s = profiling.mark(_TB_ALLOC, s)
+        if G == 0:
+            return codes, lens
+        if bits.data_ptr() % 16:
+            raise ValueError("gotoh_wide_tb: bits must be 16-byte aligned")
+        rc = _lib("gotoh_wide_tb").gotoh_wide_tb_launch(
+            bits.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, M, N, tile,
+            side, rows.data_ptr(), cstride, lens.data_ptr(),
+            _build.stream_ptr(bits.device))
+        _build.check(rc, "gotoh_wide_tb")
+        dispatch.count("gotoh_wide_tb")
+        if s:
+            profiling.mark(_TB_LAUNCH, s)
         return codes, lens
-    if bits.data_ptr() % 16:
-        raise ValueError("gotoh_wide_tb: bits must be 16-byte aligned")
-    rc = _lib("gotoh_wide_tb").gotoh_wide_tb_launch(
-        bits.data_ptr(), mlen.data_ptr(), nlen.data_ptr(), G, M, N, tile,
-        side, rows.data_ptr(), cstride, lens.data_ptr(),
-        _build.stream_ptr(bits.device))
-    _build.check(rc, "gotoh_wide_tb")
-    dispatch.count("gotoh_wide_tb")
-    return codes, lens
+    finally:
+        if s0:
+            profiling.mark(_TB_CALL, s0)
 
 
 # ---------------------------------------------------------------------------

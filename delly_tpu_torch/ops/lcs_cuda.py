@@ -27,6 +27,7 @@ import torch
 from delly_tpu_torch.ops import _build
 from delly_tpu_torch.ops.msa import lcs_plain
 from delly_tpu_torch.parallel import dispatch
+from delly_tpu_torch.utils import profiling
 
 ABSENT = 255             # letter code of a byte that b lacks
 # (lanes per pair, 64-bit words of V per lane), as csrc/lcs.cu kG and kK;
@@ -39,6 +40,8 @@ SMEM_MASKS = 64 * 1024   # mask bytes a warp keeps in shared memory
 _CAPACITY = tuple(g * k for g, k in LAYOUTS)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# host spans (utils/profiling.py): the call and its phases
+_CALL, _CHECK, _PLAN, _ALLOC, _UPLOAD, _LAUNCH = profiling.kernel_spans("lcs")
 
 
 def _lib():
@@ -153,24 +156,33 @@ def lcs(a: torch.Tensor, alens: torch.Tensor, b: torch.Tensor,
     with them the card's launch groups the pairs by layout and length
     (schedule; a batch already in that order needs no permutation on the
     card), without them every pair takes the layout of b's width N."""
-    _check(a, alens, b, blens, lut)
-    if not 0 <= nalpha <= 256:
-        raise ValueError(f"lcs: nalpha {nalpha}")
-    lengths = _lengths(a, alens, b, blens, host_lengths)
-    if a.device.type == "cpu":
-        n = b.shape[1]
-        valid = torch.arange(n)[None, :] < blens.to(torch.int64)[:, None]
-        if bool((lut[b.to(torch.int64)][valid] >= nalpha).any()):
-            raise ValueError(f"lcs: lut codes a byte of b at or above "
-                             f"nalpha {nalpha}")
-        return lcs_plain(a, alens, b, blens).to(torch.int32)
-    if a.device.type != "cuda":
-        raise ValueError(f"lcs: unsupported device {a.device}")
-    return _launch(a, alens, b, blens, lut, nalpha, lengths)
+    s0 = s = (profiling.begin() if profiling.ON
+              or profiling.PROFILER._is_profiler_enabled else 0)
+    try:
+        _check(a, alens, b, blens, lut)
+        if not 0 <= nalpha <= 256:
+            raise ValueError(f"lcs: nalpha {nalpha}")
+        lengths = _lengths(a, alens, b, blens, host_lengths)
+        if s:
+            s = profiling.mark(_CHECK, s)
+        if a.device.type == "cpu":
+            n = b.shape[1]
+            valid = torch.arange(n)[None, :] < blens.to(torch.int64)[:, None]
+            if bool((lut[b.to(torch.int64)][valid] >= nalpha).any()):
+                raise ValueError(f"lcs: lut codes a byte of b at or above "
+                                 f"nalpha {nalpha}")
+            return lcs_plain(a, alens, b, blens).to(torch.int32)
+        if a.device.type != "cuda":
+            raise ValueError(f"lcs: unsupported device {a.device}")
+        return _launch(a, alens, b, blens, lut, nalpha, lengths, s)
+    finally:
+        if s0:
+            profiling.mark(_CALL, s0)
 
 
-def _launch(a, alens, b, blens, lut, nalpha, lengths):
-    """One launch of X1 on the tensors' device (checked by lcs)."""
+def _launch(a, alens, b, blens, lut, nalpha, lengths, s=0):
+    """One launch of X1 on the tensors' device (checked by lcs); `s`,
+    where host spans are on, the start of its first phase."""
     nb, m = a.shape
     n = b.shape[1]
     out = torch.empty(nb, dtype=torch.int32, device=a.device)
@@ -178,6 +190,8 @@ def _launch(a, alens, b, blens, lut, nalpha, lengths):
         return out
     if m == 0 or n == 0:
         return out.zero_()
+    if s:
+        s = profiling.mark(_ALLOC, s)
     order = None
     if lengths is None:
         segs = [(_layout(n), 0, nb)]
@@ -190,9 +204,15 @@ def _launch(a, alens, b, blens, lut, nalpha, lengths):
             segs = [(lo, 0, nb)] if lay is None else _segments(lay)
         else:
             perm, segs = schedule(al, bl)
+            if s:
+                s = profiling.mark(_PLAN, s)
             order = torch.from_numpy(perm.astype(np.int32)).to(a.device)
+            if s:
+                s = profiling.mark(_UPLOAD, s)
     warps = warps_of(segs)
     kmax = max(LAYOUTS[lay][1] for lay, _f, _c in segs)
+    if s:
+        s = profiling.mark(_PLAN, s)
     gmasks = None
     if (nalpha + 1) * kmax * 32 * 8 > SMEM_MASKS:
         gmasks = torch.empty(warps * (nalpha + 1) * kmax * 32,
@@ -202,7 +222,9 @@ def _launch(a, alens, b, blens, lut, nalpha, lengths):
                                     for lay, _f, _c in segs):
         carry = torch.empty(warps * 2 * (-(-m // 32)), dtype=torch.int32,
                             device=a.device)
-    flat = (ctypes.c_int * (3 * len(segs)))(*(v for s in segs for v in s))
+    if s:
+        s = profiling.mark(_ALLOC, s)
+    flat = (ctypes.c_int * (3 * len(segs)))(*(v for g in segs for v in g))
     rc = _lib().lcs_launch(
         a.data_ptr(), m, alens.data_ptr(), b.data_ptr(), n, blens.data_ptr(),
         lut.data_ptr(), nalpha, nb,
@@ -212,4 +234,6 @@ def _launch(a, alens, b, blens, lut, nalpha, lengths):
         _build.stream_ptr(a.device))
     _build.check(rc, "lcs")
     dispatch.count("lcs")
+    if s:
+        profiling.mark(_LAUNCH, s)
     return out

@@ -10,6 +10,10 @@ import numpy as np
 
 from delly_tpu_torch.ops.gotoh import GAP, DnaScore, gotoh
 from delly_tpu_torch.parallel import dispatch
+from delly_tpu_torch.utils import profiling
+
+# host spans of lcs_pairs (utils/profiling.py): the call and its phases
+_CALL, _PACK, _H2D, _D2H = profiling.entry_spans("lcs_pairs")
 
 
 def lcs_plain(a, alens, b, blens):
@@ -51,28 +55,41 @@ def lcs_pairs(pairs: list) -> np.ndarray:
 
     from delly_tpu_torch.ops.lcs_cuda import lcs, letter_lut, schedule
     from delly_tpu_torch.utils import torchenv
-    xs = [x.encode() for x, _ in pairs]
-    ys = [y.encode() for _, y in pairs]
-    order, _ = schedule([len(x) for x in xs], [len(y) for y in ys])
-    nb = len(pairs)
-    m = max(1, max(len(x) for x in xs))
-    n = max(1, max(len(y) for y in ys))
-    a = np.zeros((nb, m), dtype=np.uint8)
-    b = np.zeros((nb, n), dtype=np.uint8)
-    al = np.zeros(nb, dtype=np.int32)
-    bl = np.zeros(nb, dtype=np.int32)
-    for i, k in enumerate(order):
-        a[i, :len(xs[k])] = np.frombuffer(xs[k], dtype=np.uint8)
-        b[i, :len(ys[k])] = np.frombuffer(ys[k], dtype=np.uint8)
-        al[i] = len(xs[k])
-        bl[i] = len(ys[k])
-    lut, nalpha = letter_lut(b, bl)
-    dev = torchenv.device()
-    got = lcs(*(torch.from_numpy(x).to(dev) for x in (a, al, b, bl, lut)),
-              nalpha, host_lengths=(al, bl))
-    out = np.empty(nb, dtype=np.int64)
-    out[order] = got.cpu().numpy()
-    return out
+    s0 = s = (profiling.begin() if profiling.ON
+              or profiling.PROFILER._is_profiler_enabled else 0)
+    try:
+        xs = [x.encode() for x, _ in pairs]
+        ys = [y.encode() for _, y in pairs]
+        order, _ = schedule([len(x) for x in xs], [len(y) for y in ys])
+        nb = len(pairs)
+        m = max(1, max(len(x) for x in xs))
+        n = max(1, max(len(y) for y in ys))
+        a = np.zeros((nb, m), dtype=np.uint8)
+        b = np.zeros((nb, n), dtype=np.uint8)
+        al = np.zeros(nb, dtype=np.int32)
+        bl = np.zeros(nb, dtype=np.int32)
+        for i, k in enumerate(order):
+            a[i, :len(xs[k])] = np.frombuffer(xs[k], dtype=np.uint8)
+            b[i, :len(ys[k])] = np.frombuffer(ys[k], dtype=np.uint8)
+            al[i] = len(xs[k])
+            bl[i] = len(ys[k])
+        lut, nalpha = letter_lut(b, bl)
+        dev = torchenv.device()
+        if s:
+            s = profiling.mark(_PACK, s)
+        args = [torch.from_numpy(x).to(dev) for x in (a, al, b, bl, lut)]
+        if s:
+            profiling.mark(_H2D, s)
+        got = lcs(*args, nalpha, host_lengths=(al, bl))
+        s = profiling.now() if s0 else 0
+        out = np.empty(nb, dtype=np.int64)
+        out[order] = got.cpu().numpy()
+        if s:
+            profiling.mark(_D2H, s)
+        return out
+    finally:
+        if s0:
+            profiling.mark(_CALL, s0)
 
 
 def distance_matrix(seqs: list) -> np.ndarray:

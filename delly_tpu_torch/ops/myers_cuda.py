@@ -29,6 +29,7 @@ from delly_tpu_torch.ops import _build
 from delly_tpu_torch.ops.myers import (MAX_ALPHA, alphabet_lut,
                                        alphabet_size, myers_plain)
 from delly_tpu_torch.parallel import dispatch
+from delly_tpu_torch.utils import profiling
 
 MAX_WORDS = 256          # words a launch serves: longer queries run in strips
 LANES_FROM_WORDS = 4     # W >= 4: a group of lanes per pair
@@ -36,6 +37,11 @@ ROW_BYTES = 68           # a staged chunk of 64 target columns, padded
 SMEM_MAX = 232_448       # dynamic shared memory one block may use (H100)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# host spans (utils/profiling.py): the call and its phases
+(_CALL, _CHECK, _PLAN, _ALLOC, _UPLOAD,
+ _LAUNCH) = profiling.kernel_spans("myers")
+_NP_CALL, _NP_PACK, _NP_H2D, _NP_D2H = profiling.entry_spans(
+    "batched_edit_distance_myers")
 
 
 def _lib():
@@ -110,42 +116,57 @@ def myers(q: torch.Tensor, qlens: torch.Tensor, t: torch.Tensor,
     kernel builds Peq planes for letter codes below `nalpha` only, so it
     must be at least alphabet_size(lut), which callers take it from (the
     CPU path checks it; the card's would cost a copy to the host)."""
-    _check(q, qlens, t, tlens, lut)
-    if mode not in (0, 1, 2):
-        raise ValueError(f"myers: mode {mode}")
-    if not 0 <= nalpha <= MAX_ALPHA:
-        raise ValueError(f"myers: nalpha {nalpha}")
-    if q.device.type == "cpu":
-        if nalpha < alphabet_size(lut):
-            raise ValueError(f"myers: nalpha {nalpha} is below the "
-                             f"{alphabet_size(lut)} letters of lut")
-        return myers_plain(q, qlens, t, tlens, lut, mode)
-    if q.device.type != "cuda":
-        raise ValueError(f"myers: unsupported device {q.device}")
-    b, m = q.shape
-    n = t.shape[1]
-    out = torch.empty(b, dtype=torch.int32, device=q.device)
-    if b == 0:
+    s0 = s = (profiling.begin() if profiling.ON
+              or profiling.PROFILER._is_profiler_enabled else 0)
+    try:
+        _check(q, qlens, t, tlens, lut)
+        if mode not in (0, 1, 2):
+            raise ValueError(f"myers: mode {mode}")
+        if not 0 <= nalpha <= MAX_ALPHA:
+            raise ValueError(f"myers: nalpha {nalpha}")
+        if s:
+            s = profiling.mark(_CHECK, s)
+        if q.device.type == "cpu":
+            if nalpha < alphabet_size(lut):
+                raise ValueError(f"myers: nalpha {nalpha} is below the "
+                                 f"{alphabet_size(lut)} letters of lut")
+            return myers_plain(q, qlens, t, tlens, lut, mode)
+        if q.device.type != "cuda":
+            raise ValueError(f"myers: unsupported device {q.device}")
+        b, m = q.shape
+        n = t.shape[1]
+        geo = launch_geometry(words_bucket(m), nalpha)
+        w = geo["words"]
+        strips = -(-m // (32 * w))
+        if s:
+            s = profiling.mark(_PLAN, s)
+        out = torch.empty(b, dtype=torch.int32, device=q.device)
+        if b == 0:
+            return out
+        # the carries out of a strip's top word, one byte per (pair, column)
+        carries = [torch.empty(b * max(n, 1), dtype=torch.int8,
+                               device=q.device)
+                   for _ in range(min(strips - 1, 2))]
+        if s:
+            s = profiling.mark(_ALLOC, s)
+        lib = _lib()
+        for k in range(strips):
+            cin = carries[(k - 1) % 2].data_ptr() if k else None
+            cout = carries[k % 2].data_ptr() if k + 1 < strips else None
+            rc = lib.myers_launch(q.data_ptr(), m, qlens.data_ptr(),
+                                  t.data_ptr(), n, tlens.data_ptr(),
+                                  lut.data_ptr(), nalpha, b, mode, w,
+                                  geo["lanes"], geo["threads"], geo["smem"],
+                                  32 * w * k, cin, cout, out.data_ptr(),
+                                  _build.stream_ptr(q.device))
+            _build.check(rc, "myers")
+            dispatch.count("myers")
+            if s:
+                s = profiling.mark(_LAUNCH, s)
         return out
-    geo = launch_geometry(words_bucket(m), nalpha)
-    w = geo["words"]
-    strips = -(-m // (32 * w))
-    # the carries out of a strip's top word, one byte per (pair, column)
-    carries = [torch.empty(b * max(n, 1), dtype=torch.int8, device=q.device)
-               for _ in range(min(strips - 1, 2))]
-    lib = _lib()
-    for s in range(strips):
-        cin = carries[(s - 1) % 2].data_ptr() if s else None
-        cout = carries[s % 2].data_ptr() if s + 1 < strips else None
-        rc = lib.myers_launch(q.data_ptr(), m, qlens.data_ptr(),
-                              t.data_ptr(), n, tlens.data_ptr(),
-                              lut.data_ptr(), nalpha, b, mode, w,
-                              geo["lanes"], geo["threads"], geo["smem"],
-                              32 * w * s, cin, cout, out.data_ptr(),
-                              _build.stream_ptr(q.device))
-        _build.check(rc, "myers")
-        dispatch.count("myers")
-    return out
+    finally:
+        if s0:
+            profiling.mark(_CALL, s0)
 
 
 def batched_edit_distance_myers(queries, qlens, targets, tlens,
@@ -157,25 +178,44 @@ def batched_edit_distance_myers(queries, qlens, targets, tlens,
     gate, with the whole batch's alphabet on every device."""
     from delly_tpu_torch.utils import torchenv
 
-    q = np.ascontiguousarray(np.asarray(queries), dtype=np.uint8)
-    t = np.ascontiguousarray(np.asarray(targets), dtype=np.uint8)
-    lut = alphabet_lut(q, t)
-    if lut is None:
-        return None
-    ql = np.asarray(qlens, dtype=np.int32)
-    tl = np.asarray(tlens, dtype=np.int32)
-    nalpha = alphabet_size(lut)
+    s0 = s = (profiling.begin() if profiling.ON
+              or profiling.PROFILER._is_profiler_enabled else 0)
+    try:
+        q = np.ascontiguousarray(np.asarray(queries), dtype=np.uint8)
+        t = np.ascontiguousarray(np.asarray(targets), dtype=np.uint8)
+        lut = alphabet_lut(q, t)
+        if lut is None:
+            return None
+        ql = np.asarray(qlens, dtype=np.int32)
+        tl = np.asarray(tlens, dtype=np.int32)
+        nalpha = alphabet_size(lut)
+        if s:
+            profiling.mark(_NP_PACK, s)
 
-    def launch(dev, lo, hi):
-        return myers(torch.from_numpy(q[lo:hi]).to(dev),
-                     torch.as_tensor(ql[lo:hi], device=dev),
-                     torch.from_numpy(t[lo:hi]).to(dev),
-                     torch.as_tensor(tl[lo:hi], device=dev),
-                     torch.from_numpy(lut).to(dev), mode, nalpha)
+        def launch(dev, lo, hi):
+            h = profiling.now() if s0 else 0
+            args = (torch.from_numpy(q[lo:hi]).to(dev),
+                    torch.as_tensor(ql[lo:hi], device=dev),
+                    torch.from_numpy(t[lo:hi]).to(dev),
+                    torch.as_tensor(tl[lo:hi], device=dev),
+                    torch.from_numpy(lut).to(dev))
+            if h:
+                profiling.mark(_NP_H2D, h)
+            return myers(*args, mode, nalpha)
 
-    mesh = dispatch.get_mesh()
-    if mesh is None:
-        return launch(torchenv.device(), 0, len(q)).cpu().numpy()
-    outs = dispatch.split_batch(mesh, "edist", len(q), launch)
-    return np.concatenate([o.cpu().numpy() for o in outs] +
-                          [np.zeros(0, dtype=np.int32)])
+        mesh = dispatch.get_mesh()
+        if mesh is None:
+            d = launch(torchenv.device(), 0, len(q))
+            s = profiling.now() if s0 else 0
+            res = d.cpu().numpy()
+        else:
+            outs = dispatch.split_batch(mesh, "edist", len(q), launch)
+            s = profiling.now() if s0 else 0
+            res = np.concatenate([o.cpu().numpy() for o in outs] +
+                                 [np.zeros(0, dtype=np.int32)])
+        if s:
+            profiling.mark(_NP_D2H, s)
+        return res
+    finally:
+        if s0:
+            profiling.mark(_NP_CALL, s0)

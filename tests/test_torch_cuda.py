@@ -907,3 +907,85 @@ def test_depth_windows_on_card_bit_equal_to_numpy(card, purity):
     assert cn.tobytes() == want_cn.tobytes()
     assert logr.tobytes() == want_logr.tobytes()
     assert tot == (int(ok.sum()), float(covsum[ok].sum()))
+
+
+RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cudaLaunchCooperativeKernel")
+
+
+@pytest.mark.cuda
+def test_launch_records_lie_inside_their_launch_spans(card, tmp_path):
+    """One clock for the port's host spans and the card's trace: traced
+    around a burst of calls of the four kernels the benchmark's cells
+    drive (K1 in both layouts, X1, K2, K2-tb), every runtime launch
+    record of a port kernel lies inside a `<kernel>.launch` span of its
+    own wrapper once the spans are mapped onto the trace's clock
+    (utils/profiling.py), and each wrapper call holds one."""
+    import json
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from delly_tpu_torch.testing.trace_check import KERNEL_OF
+    from delly_tpu_torch.utils import profiling
+
+    short = [x.to(card) for x in _myers_case(1, 512, 60, 100, 4)]
+    long = [x.to(card) for x in _myers_case(2, 64, 700, 900, 4)]
+    rng = np.random.default_rng(3)
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    a = letters[rng.integers(0, 4, size=(256, 100))]
+    b = letters[rng.integers(0, 4, size=(256, 100))]
+    lens = np.full(256, 100, dtype=np.int32)
+    lut, nalpha = letter_lut(b, lens)
+    x1 = [torch.from_numpy(x).to(card) for x in (a, lens, b, lens, lut)]
+    k2 = [x.to(card) for x in _gotoh_case(9, 64, 60, 100, 1, 128)]
+
+    def burst():
+        myers(*short, 2)
+        myers(*long, 0)
+        lcs(*x1, nalpha, host_lengths=(lens, lens))
+        _best, bits = gotoh_cuda.gotoh_forward(*k2, True, True, -10, -1)
+        gotoh_cuda.gotoh_traceback(bits, k2[3], k2[4])
+
+    burst()                      # the libraries loaded, the modules too
+    torch.cuda.synchronize()
+    reps = 200
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    profiling.on()
+    try:
+        for _ in range(reps):
+            burst()
+        torch.cuda.synchronize()
+    finally:
+        profiling.off()
+        prof.stop()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    spans = profiling.take()
+    assert spans["dropped"] == 0
+    profiling.add_to_trace(path, spans)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernel_of = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            m = re.search(r"::(\w+?)_kernel\b", e["name"])
+            if m and m.group(1) in KERNEL_OF:
+                kernel_of[e["args"]["correlation"]] = KERNEL_OF[m.group(1)]
+    launch = {}
+    for e in events:
+        if e.get("cat") == "port" and e["name"].endswith(".launch"):
+            launch.setdefault(e["name"][:-7], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    assert {k: len(v) for k, v in launch.items()} == {
+        "myers": 2 * reps, "lcs": reps, "gotoh": reps, "gotoh_tb": reps}
+    records = [(kernel_of[e["args"]["correlation"]], e["ts"],
+                e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "cuda_runtime"
+               and e["name"] in RUNTIME_LAUNCHES
+               and e["args"].get("correlation") in kernel_of]
+    assert len(records) == 5 * reps
+    inside = sum(any(a <= t0 and t1 <= b for a, b in launch[k])
+                 for k, t0, t1 in records)
+    assert inside >= 0.99 * len(records), (inside, len(records))
