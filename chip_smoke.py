@@ -640,10 +640,10 @@ def kernel_sass(details, k3_count: str) -> dict:
     """Prints what the kernels execute per unit of their recurrence, from
     `cuobjdump -sass` of the libraries just built, beside the operations
     their bounds count: K1 per Myers word (the thread-per-pair column
-    loop, slope over W = 1 to 2, and the lane groups' step loop, slope
-    over W = 64 to 128, 2 to 4 words a lane; each per column or step,
-    counted by the loop's byte loads: one letter lookup per column, and
-    the target byte and its lookup per step),
+    loop, slope over W = 1 to 2, counted per column by the loop's byte
+    loads, one letter lookup each; and the lane groups' step loop, slope
+    over W = 64 to 128, 2 to 4 words a lane, counted per step by its
+    shuffles, one a step),
     K2 per cell and per lane and row (row loop, slope over
     columns per lane between the warp-per-merge instantiations), K4 the
     same over its warp row loop at 4 and 8 columns a lane (the cubin
@@ -660,11 +660,12 @@ def kernel_sass(details, k3_count: str) -> dict:
     k1 = sass_loops(_build._lib_path("myers"), "myers_thread_kernel",
                     avoid=("BAR", "STS", "LDGSTS"), count="LDS.U8")
     k1l = sass_loops(_build._lib_path("myers"), "myers_lanes_kernel",
-                     must="SHFL", avoid=("BAR",), count="LDS.U8")
+                     must="SHFL", avoid=("BAR",), count="SHFL.UP")
     per_col = {k: v[1] / v[2] for k, v in k1.items() if v[2]}
-    per_step = {k: v[1] / (v[2] / 2) for k, v in k1l.items() if v[2]}
+    per_step = {k: v[1] / v[2] for k, v in k1l.items() if v[2]}
     need((1,) in per_col and (2,) in per_col and (64,) in per_step
-         and (128,) in per_step, "SASS: K1 loops without byte loads")
+         and (128,) in per_step, "SASS: K1 loops without byte loads or "
+         "shuffles")
     k1_word = per_col[(2,)] - per_col[(1,)]
     k1l_word = (per_step[(128,)] - per_step[(64,)]) / 2
     k2 = sass_loops(_build._lib_path("gotoh"), "gotoh_kernel")

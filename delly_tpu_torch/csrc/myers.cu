@@ -21,31 +21,45 @@
 //   laid out [letter][word][thread], from there. It reads 4 target
 //   columns per 32-bit load.
 // - lanes: a group of Gl = min(W, 32) lanes per pair (W >= 4; queries of
-//   65 to 8,192 rows), lane l holding words l*W/Gl ... (l+1)*W/Gl - 1: up
-//   to 8 words a lane at W = 256, where one pair's 17 Peq planes take
-//   17,408 bytes of shared memory (a block of one warp, one pair).
-//   The lanes run the diagonal wavefront of the plain version: at step s
-//   lane l updates its words for column s - l, taking its carry-in from
-//   lane l-1's carry-out of the step before by a shuffle. Each lane reads
-//   its own words' 32 query bytes (a whole sector) and keeps its own
-//   planes; the lane holding bit qlen-1 keeps the score and the result.
+//   65 to 8,192 rows), lane l holding words l*WL ... l*WL + WL - 1, WL =
+//   W/Gl: up to 8 words a lane at W = 256, where one pair's 17 Peq planes
+//   take 17,408 bytes of shared memory (a block of one warp, one pair).
+//   The words run the diagonal wavefront of the plain version: at step s
+//   word w = l*WL + k updates column s - w, taking its carry-in from word
+//   w-1's carry-out of the step before, in a register within a lane and
+//   by a shuffle of the lane's top word between lanes. A lane's words
+//   are thus independent within a step and their chains run side by
+//   side; a pair takes tlen + W - 1 steps. Each step loads the next
+//   step's planes (word 0's from the letter fetched the step before,
+//   word k's at word k-1's letter) and the letter after that, so no load
+//   waits on the carry. The targets are staged into a ring of 8 chunks a
+//   pair, coded to letters as each chunk arrives, a chunk ahead of the
+//   steps that read it; columns before 0 read the empty letter. Each lane
+//   reads its own words' 32 query bytes (a whole sector) and builds its
+//   own planes; the lane holding bit qlen-1 keeps the score (its word's
+//   bit picked by a mask each step) and the result.
 //
 // Queries of more than 8,192 rows run as strips of 8,192 rows, one launch
 // of the W = 256 lanes kernel each, from the bottom strip (rows 0 ...
 // 8,191) up. A strip writes the horizontal carry-out of its top word for
 // every column, one signed byte per (pair, column), and the next strip
 // takes it as its carry-in at row 0 in place of the mode's constant; the
-// carries are staged beside the target bytes. The strip holding row qlen
-// keeps the score and writes the result; a pair skips the strips above
-// its query. Column by column this is the recurrence of one tall query,
-// so the distances are those of the plain version at any width.
+// carries are staged beside the target bytes (only the W = 256 kernel
+// holds the code for them). The strip holding row qlen keeps the score
+// and writes the result; a pair skips the strips above its query. Column
+// by column this is the recurrence of one tall query, so the distances
+// are those of the plain version at any width.
 //
 // Bound on the H100: operations, about 24 per Myers word and column
 // (chip_smoke.py counts them); the bytes of the pairs, read once, weigh
 // about a sixth of that at the genotyping shape. The design keeps the
 // operands in shared memory and registers so the column loop waits on
 // no global load, and spreads long queries over lanes so their words'
-// chains run side by side.
+// chains run side by side. With fewer pairs than SMs (one warp an SM, as
+// in msaEdlib's calls of 105 pairs) a lanes step is bound by its latency
+// instead: one word's carry chain and a shuffle, ~85 cycles a step on
+// the H100 against ~410 when a step waited on its loads and on its
+// words one after another.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -266,10 +280,70 @@ __global__ void __launch_bounds__(128) myers_thread_kernel(Args a) {
 // lanes layout: Gl = min(W, 32) lanes per pair, W / Gl words per lane
 // ---------------------------------------------------------------------------
 
+constexpr int kRing = 8;                        // staged chunks a pair
+constexpr int kRingBytes = kRing * kChunk;      // columns j % 512
+// a pair's ring and, past its end, a copy of its first 8 bytes (so 8
+// steps read on from any position without wrapping), padded to an odd
+// number of words: the pairs' rings in distinct banks
+constexpr int kRingWords = kRingBytes / 4 + 3;
+
+// Columns [j0, j0 + 64) of the (B, N) byte rows `src` of pairs b0 ...
+// b0 + np - 1 into their rings in `buf` (pair p's at p * kRingWords
+// words, column j at byte j % kRingBytes); columns past N are left
+// unwritten.
+__device__ __forceinline__ void stage_ring(const Args& a, const void* src,
+                                           uint32_t* buf, int b0, int np,
+                                           int j0) {
+  const uint8_t* s = static_cast<const uint8_t*>(src);
+  const int off = j0 & (kRingBytes - 1);
+  if (a.tvec) {
+    const int per = min(kChunk, a.N - j0) >> 2;
+    for (int e = threadIdx.x; e < np * 16; e += blockDim.x) {
+      const int p = e >> 4, u = e & 15;
+      if (u < per)
+        cp_async4(buf + p * kRingWords + (off >> 2) + u,
+                  s + (size_t)(b0 + p) * a.N + j0 + 4 * u);
+    }
+  } else {
+    uint8_t* bb = reinterpret_cast<uint8_t*>(buf);
+    for (int e = threadIdx.x; e < np * kChunk; e += blockDim.x) {
+      const int p = e >> 6, u = e & 63;
+      if (j0 + u < a.N)
+        bb[p * 4 * kRingWords + off + u] = s[(size_t)(b0 + p) * a.N + j0 + u];
+    }
+  }
+}
+
+// One Myers word for one column, in the lanes layout's form: the carry
+// in from the word below as that word's ph (bit 31: +1) and hn (its mh's
+// bit 31: -1); ph and mh before their shift are kept as the carry up.
+__device__ __forceinline__ void lane_word(uint32_t eq, uint32_t& pv,
+                                          uint32_t& mv, uint32_t cp,
+                                          uint32_t hn, uint32_t& ph,
+                                          uint32_t& mh) {
+  const uint32_t xv = eq | mv;
+  const uint32_t eq2 = eq | hn;
+  const uint32_t xh = (((eq2 & pv) + pv) ^ pv) | eq2;
+  const uint32_t h = mv | ~(xh | pv);
+  const uint32_t m = pv & xh;
+  const uint32_t hs = __funnelshift_l(cp, h, 1);   // (h << 1) | hp
+  const uint32_t ms = (m << 1) | hn;
+  pv = ms | ~(xv | hs);
+  mv = hs & xv;
+  ph = h;
+  mh = m;
+}
+
+// a carry of -1, 0 or +1 as the (ph, hn) bits of a word below
+__device__ __forceinline__ uint32_t carry_bits(int h) {
+  return h > 0 ? 0x80000000u : h < 0 ? 1u : 0u;
+}
+
 template <int W>
 __global__ void __launch_bounds__(128) myers_lanes_kernel(Args a) {
   constexpr int GL = W < 32 ? W : 32;
   constexpr int WL = W / GL;
+  constexpr bool kStrips = W == 256;   // only W = 256 runs in strips
   extern __shared__ uint32_t dyn[];
   __shared__ uint8_t s_lut[256];
   __shared__ int s_tmax;
@@ -277,12 +351,16 @@ __global__ void __launch_bounds__(128) myers_lanes_kernel(Args a) {
   const int p = tid / GL, l = tid % GL;
   const int b0 = blockIdx.x * P;
   const int np = min(P, a.B - b0);
+  const int nalpha = a.nalpha;
   // plane c, word (l, k) of pair p: conflict-free across a warp's lanes
   uint32_t* peq = dyn + p * W + l;                   // [nalpha+1][P][W]
   const int pstride = P * W;
-  uint32_t* ring = dyn + (a.nalpha + 1) * P * W;     // [4][P][kRowWords]
-  uint32_t* cring = ring + 4 * P * kRowWords;         // carries, if cin
+  uint32_t* ring = dyn + (nalpha + 1) * P * W;       // [P][kRingWords]
+  uint32_t* cring = ring + P * kRingWords;           // carries, if cin
   for (int i = tid; i < 256; i += blockDim.x) s_lut[i] = a.lut[i];
+  // the rings start as the empty letter, which columns below 0 read
+  for (int i = tid; i < P * kRingWords; i += blockDim.x)
+    ring[i] = 0x01010101u * (uint32_t)nalpha;
   if (tid == 0) s_tmax = 0;
   __syncthreads();
   const bool live = p < np;
@@ -295,7 +373,7 @@ __global__ void __launch_bounds__(128) myers_lanes_kernel(Args a) {
   const int tl = qrel > 0 || a.r0 == 0 ? max(0, min(tlen, a.N)) : 0;
   if (l == 0 && tl) atomicMax(&s_tmax, tl);
   // this lane's words of every plane, from its own 32 query bytes a word
-  for (int pl = 0; pl <= a.nalpha; ++pl)
+  for (int pl = 0; pl <= nalpha; ++pl)
 #pragma unroll
     for (int k = 0; k < WL; ++k) peq[pl * pstride + k * GL] = 0u;
   const int qn = max(0, min(min(qlen, a.M) - a.r0, 32 * W));
@@ -312,13 +390,13 @@ __global__ void __launch_bounds__(128) myers_lanes_kernel(Args a) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int c = s_lut[(x[i >> 2] >> (8 * (i & 3))) & 255u];
-        if (base + i < qn && c < a.nalpha) dst[c * pstride] |= 1u << i;
+        if (base + i < qn && c < nalpha) dst[c * pstride] |= 1u << i;
       }
     } else {
 #pragma unroll 1
       for (int i = 0; i < 32 && base + i < qn; ++i) {
         const int c = s_lut[qrow[base + i]];
-        if (c < a.nalpha) dst[c * pstride] |= 1u << i;
+        if (c < nalpha) dst[c * pstride] |= 1u << i;
       }
     }
   }
@@ -328,62 +406,134 @@ __global__ void __launch_bounds__(128) myers_lanes_kernel(Args a) {
   const uint32_t hb = (uint32_t)((qrel - 1) & 31);
   // the lane holding word hw; none in a strip below the score's row
   const int owner = !holds ? -1 : qlen > 0 ? hw / WL : 0;
-  uint32_t pv[WL], mv[WL];
+  const int send = tl + hw;   // word hw is at column s - hw: steps before send
+  uint32_t pick[WL];          // the score's bit in word hw, none elsewhere
+  uint32_t pv[WL], mv[WL], ph[WL], mh[WL], eq[WL];
+  const uint32_t* ad[WL];     // the plane each word reads this step
 #pragma unroll
   for (int k = 0; k < WL; ++k) {
+    pick[k] = qlen > 0 && l == owner && l * WL + k == hw ? 1u << hb : 0u;
     pv[k] = 0xFFFFFFFFu;
-    mv[k] = 0u;
+    mv[k] = ph[k] = mh[k] = eq[k] = 0u;
+    ad[k] = peq + nalpha * pstride;   // the empty plane: before column 0
   }
   int score = qlen;
-  int res = a.mode == 0 ? (tlen == 0 ? qlen : kBig) : qlen;
-  const int hin0 = a.mode == 2 ? 0 : 1;
-  int hin = hin0;
+  int res = qlen;
+  const uint32_t vin0 = a.mode == 2 ? 0u : 0x80000000u;   // row 0's +1
   const int tmax = s_tmax;
-  const int nsteps = tmax ? tmax + GL - 1 : 0;
+  // steps in groups of 8; those past tmax + W - 2 change no result
+  const int nsteps = tmax ? (tmax + W + 6) & ~7 : 0;
   const int nchunks = (nsteps + kChunk - 1) / kChunk;
   const int tchunks = (tmax + kChunk - 1) / kChunk;
-  const uint8_t* trow =
-      reinterpret_cast<const uint8_t*>(ring) + p * 4 * kRowWords;
-  const int8_t* crow =
-      reinterpret_cast<const int8_t*>(cring) + p * 4 * kRowWords;
+  uint32_t* const trow = ring + p * kRingWords;
+  const uint8_t* const tb = reinterpret_cast<const uint8_t*>(trow);
+  const int8_t* const cb =
+      reinterpret_cast<const int8_t*>(cring + p * kRingWords);
+  const int lag = l * WL;   // word k of this lane is at column s - lag - k
   auto stage = [&](int kc) {
-    const int off = (kc & 3) * P * kRowWords;
-    stage_rows(a, a.t, ring + off, b0, np, kc * kChunk);
-    if (a.cin) stage_rows(a, a.cin, cring + off, b0, np, kc * kChunk);
-  };
-  if (tchunks) stage(0);
-  cp_async_commit();
-  for (int kc = 0; kc < nchunks; ++kc) {
-    // steps of chunk kc read columns of chunks kc - 1 and kc: a ring of
-    // four buffers leaves chunk kc + 1 free to arrive meanwhile
-    if (kc + 1 < tchunks) stage(kc + 1);
+    if (kc < tchunks) {
+      stage_ring(a, a.t, ring, b0, np, kc * kChunk);
+      if (kStrips && a.cin) stage_ring(a, a.cin, cring, b0, np, kc * kChunk);
+    }
     cp_async_commit();
+  };
+  // chunk kc's target bytes to letter codes, by the lanes of their pair:
+  // codes >= nalpha read the empty plane, as nalpha
+  auto code = [&](int kc) {
+    if (kc < tchunks) {
+      uint32_t* w = trow + ((kc * kChunk) & (kRingBytes - 1)) / 4;
+      for (int u = l; u < kChunk / 4; u += GL) {
+        const uint32_t x = w[u];
+        uint32_t y = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y |= (uint32_t)min((int)s_lut[(x >> (8 * e)) & 255u], nalpha)
+               << (8 * e);
+        w[u] = y;
+        if (w == trow && u < 2) trow[kRingBytes / 4 + u] = y;   // the copy
+      }
+    }
+    __syncwarp();
+  };
+  stage(0);
+  stage(1);
+  cp_async_wait1();
+  __syncthreads();
+  code(0);
+  // step 0: word 0 at column -lag, the words above it before column 0
+  ad[0] = peq + tb[-lag & (kRingBytes - 1)] * pstride;
+  eq[0] = ad[0][0];
+  int cn = tb[(1 - lag) & (kRingBytes - 1)];   // word 0's letter, step 1
+  uint32_t vin = l ? 0u : kStrips && a.cin ? carry_bits(cb[0]) : vin0;
+
+  for (int kc = 0; kc < nchunks; ++kc) {
+    // steps of chunk kc read columns of chunks kc - W / 64 ... kc + 1,
+    // coded here; chunk kc + 2 arrives meanwhile in an eighth buffer
+    stage(kc + 2);
     cp_async_wait1();
     __syncthreads();
+    code(kc + 1);
     const int s1 = min(nsteps, (kc + 1) * kChunk);
-#pragma unroll 1
-    for (int s = kc * kChunk; s < s1; ++s) {
-      const int j = s - l;
-      int hout = 0;
-      if (j >= 0 && j < tl) {
-        const int at = ((j >> 6) & 3) * P * 4 * kRowWords + (j & 63);
-        if (a.cin && l == 0) hin = crow[at];   // the strip below's carry
-        const int c = min((int)s_lut[trow[at]], a.nalpha);
-        uint32_t eq[WL];
+    // Step s: word k of lane l updates column s - lag - k, taking its
+    // carry from word k - 1's column of step s - 1 (a register) or, for
+    // word 0, from lane l - 1's top word of step s - 1 (a shuffle): the
+    // words' chains run side by side, and only the top word's carry
+    // crosses lanes. Each step loads the next step's planes and the
+    // letter of the step after, so no load waits on the carry.
+    for (int s8 = kc * kChunk; s8 < s1; s8 += 8) {
+      const uint8_t* const tj = tb + ((s8 + 2 - lag) & (kRingBytes - 1));
 #pragma unroll
-        for (int k = 0; k < WL; ++k) eq[k] = peq[c * pstride + k * GL];
-        int delta = 0;
-        hout = column<WL>(eq, pv, mv, hin, l * WL, hw, hb, delta);
-        if (a.cout && l == GL - 1) a.cout[(size_t)b * a.N + j] = (int8_t)hout;
-        if (l == owner) {
-          score += delta;
-          track(a.mode, j, tlen, score, res);
+      for (int u = 0; u < 8; ++u) {
+        const int s = s8 + u;
+        uint32_t eqn[WL];
+        const uint32_t* adn[WL];
+        adn[0] = peq + cn * pstride;
+#pragma unroll
+        for (int k = 1; k < WL; ++k) adn[k] = ad[k - 1];
+#pragma unroll
+        for (int k = 0; k < WL; ++k) eqn[k] = adn[k][k * GL];
+        cn = tj[u];
+        const uint32_t v0 = kStrips && a.cin
+                                ? carry_bits(cb[(s + 1) & (kRingBytes - 1)])
+                                : vin0;
+        uint32_t cp[WL], hn[WL];   // carries in: word k - 1's, step s - 1
+        cp[0] = vin;
+        hn[0] = vin & 1u;
+#pragma unroll
+        for (int k = 1; k < WL; ++k) {
+          cp[k] = ph[k - 1];
+          hn[k] = mh[k - 1] >> 31;
+        }
+#pragma unroll
+        for (int k = 0; k < WL; ++k)
+          lane_word(eq[k], pv[k], mv[k], cp[k], hn[k], ph[k], mh[k]);
+        const uint32_t vout = (ph[WL - 1] & 0x80000000u) | (mh[WL - 1] >> 31);
+        const uint32_t up = __shfl_up_sync(0xFFFFFFFFu, vout, 1, GL);
+        vin = l ? up : v0;
+        if (kStrips && a.cout && l == GL - 1) {   // the strip above's carry
+          const int j = s - (W - 1);
+          if (j >= 0 && j < tl)
+            a.cout[(size_t)b * a.N + j] =
+                (int8_t)((int)(ph[WL - 1] >> 31) - (int)(mh[WL - 1] >> 31));
+        }
+        uint32_t sp = 0, sm = 0;
+#pragma unroll
+        for (int k = 0; k < WL; ++k) {
+          sp |= ph[k] & pick[k];
+          sm |= mh[k] & pick[k];
+        }
+        if (s < send) score += (int)(sp >> hb) - (int)(sm >> hb);
+        res = min(res, score);
+#pragma unroll
+        for (int k = 0; k < WL; ++k) {
+          ad[k] = adn[k];
+          eq[k] = eqn[k];
         }
       }
-      hin = __shfl_up_sync(0xFFFFFFFFu, hout, 1, GL);
-      if (l == 0) hin = hin0;
     }
   }
+  if (a.mode == 0)   // the score at column tlen - 1, where there is one
+    res = tlen == 0 ? qlen : tlen >= 1 && tlen <= a.N ? score : kBig;
   if (live && l == owner)
     a.out[b] = qlen <= 0 ? (a.mode == 0 ? tlen : 0) : res;
 }
@@ -458,7 +608,8 @@ extern "C" int myers_launch(const void* q, int M, const void* qlens,
   if (lanes != (W < 32 ? W : 32) || threads % lanes)
     return (int)cudaErrorInvalidValue;
   const int n = threads, pairs = threads / lanes;
-  if (smem < 4 * (nalpha + 1) * W * pairs + (cin ? 8 : 4) * pairs * rows)
+  if (smem <
+      4 * (nalpha + 1) * W * pairs + (cin ? 8 : 4) * pairs * kRingWords)
     return (int)cudaErrorInvalidValue;
   switch (W) {
     case 4: return launch(myers_lanes_kernel<4>, a, pairs, n, smem, st);

@@ -5,11 +5,20 @@ Replaces ``delly_tpu/ops/myers_pallas.py::batched_edit_distance_pallas``
 layouts that ``launch_geometry`` chooses by the query's word count W:
 one thread per pair up to 64 query rows (W <= 2), a group of
 min(W, 32) lanes per pair above, up to W = 256 (8,192 rows, 8 words a
-lane). Longer queries (``lr``'s consensus distances of long DUPs and
-INSs) run as strips of 8,192 rows, one launch each from the bottom up,
-each strip's top carries handed to the next: K1 serves any width. On the H100
-its floor is set by integer operations (~24 per 32-query-row word and
-target column); the bytes of the pairs it reads once weigh less.
+lane). In the lanes layout word w = l WL + k (word k of lane l, WL words
+a lane) updates column s - w at step s, its carry from word w - 1's
+column of the step before: a register within a lane, a shuffle of lane
+l - 1's top word between lanes. A lane's words so run side by side, a
+pair takes tlen + W - 1 steps, and each step loads the next one's Peq
+planes and letter ahead of the carry. The targets are staged a pair at
+a time into a ring of 8 chunks of 64 columns (`RING_BYTES`) and coded to
+letters there. Longer queries (``lr``'s consensus distances of long DUPs
+and INSs) run as strips of 8,192 rows, one launch each from the bottom
+up, each strip's top carries handed to the next: K1 serves any width. On
+the H100 its floor is set by integer operations (~24 per 32-query-row
+word and target column); the bytes of the pairs it reads once weigh
+less. With few pairs a launch (one warp an SM) a lanes step is bound by
+its latency and its one warp's issue instead.
 
 ``myers`` takes tensors: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs the plain version
@@ -33,7 +42,8 @@ from delly_tpu_torch.utils import profiling
 
 MAX_WORDS = 256          # words a launch serves: longer queries run in strips
 LANES_FROM_WORDS = 4     # W >= 4: a group of lanes per pair
-ROW_BYTES = 68           # a staged chunk of 64 target columns, padded
+ROW_BYTES = 68           # thread layout: a staged chunk of 64 columns, padded
+RING_BYTES = 524         # lanes layout: a pair's ring of 8 chunks, padded
 SMEM_MAX = 232_448       # dynamic shared memory one block may use (H100)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,23 +78,24 @@ def launch_geometry(W: int, nalpha: int = MAX_ALPHA) -> dict:
     group of `lanes` = min(W, 32) lanes per pair, each holding
     `words_per_lane` consecutive words), the `words` of one launch (W,
     or MAX_WORDS for a query run in strips), threads and pairs per
-    block, the staged target chunks in the ring, and the dynamic shared
-    memory: the Peq planes (nalpha + 1 of `words` words per pair, the
-    last one empty) and the ring of padded target rows, twice over in
-    strips (the carries from the strip below are staged beside them)."""
+    block, the bytes of staged target columns a pair (`ring_bytes`: two
+    padded chunks of 64 in the thread layout, a ring of eight in the
+    lanes layout), and the dynamic shared memory: the Peq planes
+    (nalpha + 1 of `words` words per pair, the last one empty) and the
+    staged columns, twice over in strips (the carries from the strip
+    below are staged beside them)."""
     words = min(W, MAX_WORDS)
     if W < LANES_FROM_WORDS:
-        lanes, threads, buffers = 1, 128, 2
+        lanes, threads, ring = 1, 128, 2 * ROW_BYTES
     else:
-        lanes, buffers = min(W, 32), 4
+        lanes, ring = min(W, 32), RING_BYTES
         threads = 128 if W <= 16 else 32
     pairs = threads // lanes
     rings = 2 if W > MAX_WORDS else 1
-    smem = (4 * (nalpha + 1) * words * pairs
-            + rings * buffers * pairs * ROW_BYTES)
+    smem = 4 * (nalpha + 1) * words * pairs + rings * pairs * ring
     return {"layout": "thread" if lanes == 1 else "lanes", "lanes": lanes,
             "words": words, "words_per_lane": words // lanes,
-            "threads": threads, "pairs": pairs, "buffers": buffers,
+            "threads": threads, "pairs": pairs, "ring_bytes": ring,
             "smem": smem}
 
 

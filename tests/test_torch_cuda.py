@@ -106,6 +106,74 @@ def test_myers_layouts_match_plain(card, qlen, nalpha):
             assert torch.equal(got.cpu(), want), (n, mode)
 
 
+def _lanes_case(seed, b, m, n, nalpha, qlo=None, qhi=None):
+    """`b` pairs over `nalpha` letters at m x n, half of the targets a
+    mutated piece of their query; query lengths in [qlo, qhi] (else 1 to
+    m) with the edges of the lanes layout among them: a query ending on
+    a lane's last word and on a word's last bit (32k, 32k + 1), m rows,
+    one row; targets of 0, 1 and n columns among ragged ones."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACGTNRYKMSWBDHVX", dtype=np.uint8)[:nalpha]
+    q = letters[rng.integers(0, nalpha, size=(b, m))]
+    t = letters[rng.integers(0, nalpha, size=(b, n))]
+    t[0, :nalpha] = letters
+    ql = rng.integers(qlo or 1, (qhi or m) + 1, size=b).astype(np.int32)
+    tl = rng.integers(0, n + 1, size=b).astype(np.int32)
+    if qlo is None:
+        wl = max(1, -(-m // 32) // 32)          # words a lane
+        ql[1:7] = [m, 1, 32 * wl * 3, 32 * wl * 3 + 1, 32 * (m // 64),
+                   32 * (m // 64) + 1]
+        tl[1:5] = [0, 1, n, 0]
+        tl[7:9] = [1, n]
+    else:
+        tl = rng.integers(qlo, (qhi or n) + 1, size=b).astype(np.int32)
+    for i in range(0, b, 2):
+        k = int(min(ql[i], tl[i]))
+        off = int(rng.integers(0, ql[i] - k + 1))
+        seg = q[i, off:off + k].copy()
+        hit = rng.random(k) < 0.08
+        seg[hit] = letters[rng.integers(0, nalpha, size=int(hit.sum()))]
+        t[i, :k] = seg
+    lut = alphabet_lut(q, t)
+    assert alphabet_size(lut) == nalpha
+    return [torch.from_numpy(x) for x in (q, ql, t, tl, lut)]
+
+
+# (pairs, m, n, nalpha, query and target lengths, modes)
+LANES_CASES = {
+    # ont.cons: one DEL's msaEdlib call, 105 NW pairs of 1,669-2,000 bases
+    "ont_cons": (105, 2048, 2048, 4, (1669, 2000), (0,)),
+    # a 16,384-row query in two strips: carries out of one, into the next
+    "strips": (24, 16384, 700, 4, None, (0, 1, 2)),
+}
+for _w in (4, 16, 64, 256):
+    for _na in (1, 4, 16):
+        # fewer pairs than the card's 132 SMs take blocks
+        LANES_CASES[f"W{_w}_nalpha{_na}"] = (40, 32 * _w, 300, _na, None,
+                                             (0, 1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LANES_CASES))
+def test_myers_lanes_match_plain(card, case):
+    """The lanes layout (W >= 4) bit-equal to the plain version at the
+    shapes it serves with few pairs a launch: ont.cons's call, fewer
+    pairs than SMs at W = 4, 16, 64 and 256 with 1, 4 and 16 letters
+    (queries ending on a lane's last word and on a word's last bit,
+    targets of 0 and 1 columns), and a query in two strips; one K1
+    launch per strip of 8,192 rows."""
+    b, m, n, nalpha, lens, modes = LANES_CASES[case]
+    lo, hi = lens or (None, None)
+    args = _lanes_case(len(case) * 1009 + m + n, b, m, n, nalpha, lo, hi)
+    for mode in modes:
+        want = myers_plain(*args, mode)
+        dispatch.reset()
+        got = myers(*(x.to(card) for x in args), mode, nalpha)
+        torch.cuda.synchronize()
+        assert dispatch.snapshot()["myers"] == -(-m // 8192)
+        assert torch.equal(got.cpu(), want), (case, mode)
+
+
 def _rand_seq(rng, lo, hi):
     return "".join(rng.choice("ACGT") for _ in range(rng.randint(lo, hi)))
 

@@ -154,7 +154,9 @@ def test_launch_geometry(m):
         assert geo["threads"] % 32 == 0 and geo["threads"] <= 128
         assert geo["pairs"] * lanes == geo["threads"]
         planes = 4 * (nalpha + 1) * words * geo["pairs"]
-        ring = geo["buffers"] * geo["pairs"] * myers_cuda.ROW_BYTES
+        ring = geo["pairs"] * geo["ring_bytes"]
+        assert geo["ring_bytes"] == (2 * myers_cuda.ROW_BYTES if lanes == 1
+                                     else myers_cuda.RING_BYTES)
         rings = 2 if w > words else 1
         assert geo["smem"] == planes + rings * ring <= myers_cuda.SMEM_MAX
         if lanes == 1:   # the query rows are staged in the target ring
@@ -217,3 +219,238 @@ def test_long_queries_match_jax_host(torch_cpu, m, n, mode):
     got = edist.batched_edit_distance(q, ql, t, tl, mode)
     assert dispatch.snapshot()["rowscan"] == 0
     np.testing.assert_array_equal(got, _oracle(q, ql, t, tl, mode))
+
+
+def _lanes_model(q, ql, t, tl, lut, nalpha, mode, W, r0=0, cin=None):
+    """A numpy model of csrc/myers.cu's lanes layout: its blocks of
+    pairs, the letter rings and the order in which chunks are staged and
+    coded, and each lane's step: lane l's word k (word w = l * WL + k) at
+    column s - w, the next step's planes and the letter after loaded a
+    step ahead, the carry between a lane's words in registers and between
+    lanes by a shuffle used the step after it is made, the score's word
+    picked by a mask. Every letter code a
+    step reads must be a coded one (at most nalpha: a raw byte would
+    address past the planes). Returns (distances of the pairs whose
+    strip holds their score, else -1; the carries out of the strip's top
+    word, -2 where unwritten)."""
+    u32 = np.uint32
+    B, M = q.shape
+    N = t.shape[1]
+    GL = min(W, 32)
+    WL = W // GL
+    P = (128 if W <= 16 else 32) // GL
+    chunk, ring_n = 64, 512
+    nb = -(-B // P)
+    pad = nb * P - B
+    live = np.arange(nb * P) < B
+    qlen = np.concatenate([ql, np.zeros(pad, np.int64)]).astype(np.int64)
+    tlen = np.concatenate([tl, np.zeros(pad, np.int64)]).astype(np.int64)
+    qrel = qlen - r0
+    holds = np.where(qlen <= 0, r0 == 0, (qrel >= 1) & (qrel <= 32 * W))
+    tlp = np.where((qrel > 0) | (r0 == 0), np.clip(np.minimum(tlen, N), 0,
+                                                   None), 0)
+    tmax = tlp.reshape(nb, P).max(axis=1)
+    nsteps = np.where(tmax > 0, (tmax + W + 6) // 8 * 8, 0)
+    tchunks = -(-tmax // chunk)
+    lut = np.asarray(lut, dtype=np.int64)
+    # Peq planes (nalpha + 1, pairs, W): bits at or above the strip's rows
+    # of the query clear, the last plane empty
+    peq = np.zeros((nalpha + 1, nb * P, W), dtype=u32)
+    for i in range(B):
+        qn = max(0, min(min(int(qlen[i]), M) - r0, 32 * W))
+        c = lut[q[i, r0:r0 + qn]]
+        for r in np.flatnonzero(c < nalpha):
+            peq[c[r], i, r // 32] |= u32(1 << (r % 32))
+    tt = np.zeros((nb * P, N), dtype=np.int64)
+    tt[:B] = t
+    cc = np.zeros((nb * P, N), dtype=np.int64)
+    if cin is not None:
+        cc[:B] = cin
+    ring = np.full((nb * P, ring_n), nalpha, dtype=np.int64)
+    cring = np.zeros((nb * P, ring_n), dtype=np.int64)
+    blk_of = np.repeat(np.arange(nb), P)
+
+    def stage(kc):
+        j0 = kc * chunk
+        cols = np.arange(j0, min(j0 + chunk, N))
+        rows = np.flatnonzero(live & (kc < tchunks[blk_of]))
+        if len(cols) and len(rows):
+            ring[np.ix_(rows, cols % ring_n)] = tt[np.ix_(rows, cols)]
+            cring[np.ix_(rows, cols % ring_n)] = cc[np.ix_(rows, cols)]
+
+    def code(kc):
+        rows = np.flatnonzero(kc < tchunks[blk_of])
+        at = (kc * chunk) % ring_n + np.arange(chunk)
+        ring[np.ix_(rows, at)] = np.minimum(lut[ring[np.ix_(rows, at)]],
+                                            nalpha)
+
+    lanes = np.arange(GL)
+    lag = (lanes * WL)[None, :]                         # (1, GL)
+    pairs = np.arange(nb * P)[:, None]
+    word = (lanes * WL)[None, :, None] + np.arange(WL)  # (1, GL, WL)
+    hw = (qrel - 1) >> 5
+    hb = ((qrel - 1) & 31).astype(u32)
+    owner = np.where(~holds, -1, np.where(qlen > 0, hw // WL, 0))
+    send = (tlp + hw)[:, None]
+    pick = np.where((qlen > 0)[:, None, None]
+                    & (lanes[None, :, None] == owner[:, None, None])
+                    & (word == hw[:, None, None]),
+                    u32(1) << hb[:, None, None], u32(0)).astype(u32)
+    shape = (nb * P, GL, WL)
+    pv = np.full(shape, 0xFFFFFFFF, dtype=u32)
+    mv, ph, mh, eq = (np.zeros(shape, dtype=u32) for _ in range(4))
+    ad = np.full(shape, nalpha, dtype=np.int64)         # a plane per word
+    score = np.repeat(qlen[:, None], GL, axis=1)
+    res = score.copy()
+    vin0 = u32(0 if mode == 2 else 0x80000000)
+    cout = np.full((nb * P, N), -2, dtype=np.int64)
+
+    def bits(h):
+        return np.where(h > 0, u32(0x80000000),
+                        np.where(h < 0, u32(1), u32(0))).astype(u32)
+
+    def read(col):
+        c = ring[pairs, col % ring_n]
+        assert (c <= nalpha).all(), "a step read an uncoded letter"
+        return c
+
+    stage(0)
+    stage(1)
+    code(0)
+    ad[..., 0] = read(-lag)
+    eq[..., 0] = peq[ad[..., 0], pairs, word[..., 0]]
+    cn = read(1 - lag)
+    vin = np.where(lanes == 0, bits(cring[:, :1]) if cin is not None
+                   else vin0, u32(0)).astype(u32)
+    for kc in range(int(-(-nsteps.max() // chunk)) if B else 0):
+        stage(kc + 2)
+        code(kc + 1)
+        for s in range(kc * chunk, min((kc + 1) * chunk, nsteps.max())):
+            on = (s < nsteps[blk_of])[:, None]
+            adn = np.concatenate([cn[..., None], ad[..., :-1]], axis=2)
+            eqn = peq[adn, pairs[..., None], word]
+            cn = read(s + 2 - lag)
+            v0 = (bits(cring[:, (s + 1) % ring_n])[:, None]
+                  if cin is not None else vin0)
+            with np.errstate(over="ignore"):
+                for k in range(WL - 1, -1, -1):
+                    cp = ph[..., k - 1] if k else vin
+                    hn = mh[..., k - 1] >> u32(31) if k else vin & u32(1)
+                    e, p0, m0 = eq[..., k], pv[..., k], mv[..., k]
+                    xv = e | m0
+                    eq2 = e | hn
+                    xh = (((eq2 & p0) + p0) ^ p0) | eq2
+                    h = m0 | ~(xh | p0)
+                    m = p0 & xh
+                    hs = (h << u32(1)) | (cp >> u32(31))
+                    ms = (m << u32(1)) | hn
+                    pv[..., k] = np.where(on, ms | ~(xv | hs), p0)
+                    mv[..., k] = np.where(on, hs & xv, m0)
+                    ph[..., k] = np.where(on, h, ph[..., k])
+                    mh[..., k] = np.where(on, m, mh[..., k])
+            vout = (ph[..., -1] & u32(0x80000000)) | (mh[..., -1] >> u32(31))
+            up = np.concatenate([vout[:, :1], vout[:, :-1]], axis=1)
+            vin = np.where(on, np.where(lanes == 0, v0, up), vin).astype(
+                u32)
+            j = s - (W - 1)
+            top = (on[:, 0] & (j >= 0) & (j < tlp))
+            if top.any():
+                cout[top, j] = ((ph[top, -1, -1] >> u32(31)).astype(np.int64)
+                                - (mh[top, -1, -1] >> u32(31)))
+            sp = np.bitwise_or.reduce(ph & pick, axis=2)
+            sm = np.bitwise_or.reduce(mh & pick, axis=2)
+            d = ((sp >> hb[:, None]).astype(np.int64)
+                 - (sm >> hb[:, None]).astype(np.int64))
+            score = score + np.where(on & (s < send), d, 0)
+            res = np.where(on, np.minimum(res, score), res)
+            ad = np.where(on[..., None], adn, ad)
+            eq = np.where(on[..., None], eqn, eq)
+    i = np.arange(nb * P)
+    sc = score[i, np.maximum(owner, 0)]
+    rs = res[i, np.maximum(owner, 0)]
+    if mode == 0:
+        rs = np.where(tlen == 0, qlen, np.where((tlen >= 1) & (tlen <= N),
+                                                sc, 1 << 20))
+    out = np.where(qlen <= 0, tlen if mode == 0 else 0, rs)
+    out = np.where(holds & live, out, -1)
+    return out[:B], cout[:B]
+
+
+def _model_strips(q, ql, t, tl, lut, mode):
+    """The model run as the wrapper launches it: one strip of W = 256 (or
+    the query's words) after another, from the bottom, each strip's top
+    carries into the next. Returns (distances, launches)."""
+    nalpha = alphabet_size(lut)
+    geo = myers_cuda.launch_geometry(myers_cuda.words_bucket(q.shape[1]),
+                                     nalpha)
+    w = geo["words"]
+    strips = -(-q.shape[1] // (32 * w))
+    out = np.full(len(q), -1, dtype=np.int64)
+    cin = None
+    for k in range(strips):
+        got, cout = _lanes_model(q, ql, t, tl, lut, nalpha, mode, w,
+                                 32 * w * k, cin)
+        assert ((out < 0) | (got < 0)).all()   # one strip holds a score
+        out = np.where(got >= 0, got, out)
+        cin = cout
+    return out, strips
+
+
+@pytest.mark.parametrize("m,n,nalpha", [
+    (65, 150, 4), (100, 64, 1), (200, 130, 16), (512, 96, 5),
+    (1000, 70, 4), (2048, 200, 4), (4096, 90, 2), (8192, 70, 4),
+    (16384, 40, 4)])
+def test_lanes_model_matches_plain(m, n, nalpha):
+    """The lanes layout's schedule (_lanes_model) gives the plain
+    version's distances at every lanes width, W = 4 (65 rows) to 256
+    (8,192) and two strips (16,384): queries of exactly m rows, 32k and
+    32k + 1 rows, one row and none beside ragged ones, targets of 0, 1
+    and n columns, in a number of pairs that is no multiple of a
+    block's, all three modes."""
+    q, ql, t, tl = _case(m * 3 + n + nalpha, 37, m, n, nalpha, empty=True)
+    ql[3:9] = [m, 1, min(m, 96), min(m, 97), m - 1, 32 * (m // 64) + 1]
+    tl[3:12] = [0, 1, n, n, 0, 1, n, n - 1, n]
+    lut = alphabet_lut(q, t)
+    for mode in (0, 1, 2):
+        want = myers_plain(*(torch.from_numpy(x) for x in (q, ql, t, tl,
+                                                           lut)), mode)
+        got, strips = _model_strips(q, ql, t, tl, lut, mode)
+        assert strips == -(-m // 8192)
+        np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_lanes_ring_size_matches_kernel():
+    """RING_BYTES, which launch_geometry sizes the shared memory by, is
+    the kernel's ring: kRing chunks of kChunk columns a pair and the
+    words past its end (a copy of its first bytes, and pad)."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(myers_cuda.__file__), "..",
+                            "csrc", "myers.cu")).read()
+    ring = int(re.search(r"constexpr int kRing = (\d+);", src).group(1))
+    chunk = int(re.search(r"constexpr int kChunk = (\d+);", src).group(1))
+    extra = int(re.search(r"constexpr int kRingWords = kRingBytes / 4 \+ "
+                          r"(\d+);", src).group(1))
+    assert re.search(r"constexpr int kRingBytes = kRing \* kChunk;", src)
+    assert myers_cuda.RING_BYTES == 4 * (ring * chunk // 4 + extra)
+
+
+def test_kernel_names_map_to_k1():
+    """Every __global__ function of csrc/myers.cu, named as the device
+    trace prints it, is K1 to svbench (svbench/trace.py kernel_key): a
+    renamed kernel fails here and not as roofline.k1 missing on the
+    card."""
+    import os
+    import re
+
+    from svbench.trace import kernel_key
+    src = open(os.path.join(os.path.dirname(myers_cuda.__file__), "..",
+                            "csrc", "myers.cu")).read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s+)?(\w+)\s*\(", src)
+    assert {"myers_thread_kernel", "myers_lanes_kernel"} <= set(names)
+    for name in names:
+        for w in (2, 64):
+            trace = (f"void (anonymous namespace)::{name}<{w}>("
+                     f"(anonymous namespace)::Args)")
+            assert kernel_key(trace) == "k1", trace
